@@ -21,7 +21,20 @@ Phases, each of which raises on failure (nothing is caught):
    event counts, floats within rtol 1e-5 / atol 1e-6); then a shorter
    full-width run under torch.profiler: device idle share, kernel launches
    and host reads per pass;
-6. the last line: {"ok": true, "device": {...}}.
+6. LM kernels: flash_attention and linear_scan against their plain
+   versions on random cases covering every feature (f32 and bf16) and at
+   the Jamba hybrid's full-width shapes, timed beside the plain version,
+   the bound and (flash) PyTorch's scaled_dot_product_attention;
+7. the Jamba hybrid LM at full width, cut from 32 to 16 layers to fit in
+   HBM: lm.forward over 4096 tokens (lm_forward_full_width), then a
+   ServeEngine batch of 4 prompts of 384-512 tokens with 32 new tokens each
+   (lm_serve_full_width), with the launch counters set to 0 just before
+   and read just after; one forward and one serve batch again under
+   torch.profiler (lm_profile); then the first 8 layers with attn_impl "pallas"
+   against "chunked", the reference's own plain path (lm_kernel_vs_plain),
+   and the reduced config in f32 on the card against the CPU
+   (lm_cross_check);
+8. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is present.  Writes
 the full record to DIR/chip_smoke.json (default build/chip_smoke/).
@@ -29,6 +42,7 @@ the full record to DIR/chip_smoke.json (default build/chip_smoke/).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -44,6 +58,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-6
 UNCOMPARED = ("energy_lo", "t_c")   # Kahan low words: never compared
 
@@ -77,9 +92,10 @@ def time_ms(fn, n: int = 100, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = H100_F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -281,12 +297,45 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     return records, checks
 
 
-def profile_phase(n_tasks: int) -> dict:
-    """One full-width run under torch.profiler: device busy and idle share,
-    kernel launches and host reads per pass, the top host-side ops."""
+def profiled(fn) -> tuple:
+    """Run ``fn`` under torch.profiler; returns its result and a summary:
+    wall, device busy and idle share, kernel launches, host reads, the top
+    host ops and device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    # device rows only: a host op's self device time repeats the time of
+    # the kernels it launched
+    device_us = sum(e.self_device_time_total for e in avg
+                    if e.device_type == DeviceType.CUDA)
+    calls = {e.key: e.count for e in avg}
+    top = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    top_dev = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total,
+                     reverse=True)[:8]
+    return out, dict(
+        wall_s=wall, device_busy_s=device_us / 1e6,
+        device_idle_share=1.0 - device_us / 1e6 / wall,
+        kernel_launches=sum(n for k, n in calls.items()
+                            if "LaunchKernel" in k),
+        host_reads=calls.get("aten::_local_scalar_dense", 0),
+        top_self_cpu_ms=[(e.key, e.count, e.self_cpu_time_total / 1e3)
+                         for e in top],
+        top_device_ms=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                       for e in top_dev])
+
+
+def profile_phase(n_tasks: int) -> dict:
+    """One full-width run under torch.profiler: device busy and idle share,
+    kernel launches and host reads per pass, the top host-side ops."""
     from repro_torch.core import engine
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
@@ -294,32 +343,11 @@ def profile_phase(n_tasks: int) -> dict:
     spec, params = engine.make_cloud(n_pm=500, n_vm=4096, pm_cores=64.0,
                                      pm_sched="ondemand",
                                      max_events=4_000_000)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res, wall = run(spec, trace, params, "cuda")
+    (res, _), prof = profiled(lambda: run(spec, trace, params, "cuda"))
     events = int(res.n_events)
-    avg = prof.key_averages()
-    # device rows only: a host op's self device time repeats the time of
-    # the kernels it launched
-    device_us = sum(e.self_device_time_total for e in avg
-                    if e.device_type == DeviceType.CUDA)
-    calls = {e.key: e.count for e in avg}
-    launches = sum(n for k, n in calls.items() if "LaunchKernel" in k)
-    reads = calls.get("aten::_local_scalar_dense", 0)
-    top = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    top_dev = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total,
-                     reverse=True)[:8]
-    rec = dict(
-        tasks=int(trace.n), events=events, wall_s=wall,
-        device_busy_s=device_us / 1e6,
-        device_idle_share=1.0 - device_us / 1e6 / wall,
-        kernel_launches_per_pass=launches / events,
-        host_reads_per_pass=reads / events,
-        top_self_cpu_ms=[(e.key, e.count, e.self_cpu_time_total / 1e3)
-                         for e in top],
-        top_device_ms=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
-                       for e in top_dev])
+    rec = dict(tasks=int(trace.n), events=events, **prof,
+               kernel_launches_per_pass=prof["kernel_launches"] / events,
+               host_reads_per_pass=prof["host_reads"] / events)
     print(json.dumps({"profile_full_width": rec}))
     return rec
 
@@ -413,6 +441,369 @@ def cross_check() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# LM stack: flash_attention and linear_scan, the Jamba hybrid end to end
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "jamba-v0.1-52b"
+# flash kernel against its plain version, (rtol, atol).  Both compute in f32
+# and round the output once, so in bf16 they differ by at most one ulp,
+# 2**-7 of the value at most: rtol 1e-2 covers it and atol 2e-3 the
+# smallest outputs.  At the main path's shape an output's spread is about
+# 0.03, so a wrong scale or a dropped or extra tile of keys breaks this.
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2e-3)}
+# the 8-layer model in bf16, flash kernel against the chunked path: the two
+# sum the attention in another order before rounding it to bf16, and later
+# layers carry the difference (a near-tie in MoE routing may flip a token),
+# so the check bounds the relative L2 error of the logits and the share of
+# positions whose argmax agrees
+LM_REL_L2_TOL, LM_ARGMAX_AGREE = 1e-2, 0.95
+LM_CROSS_TOL = 1e-4        # reduced config in f32, card vs CPU
+
+
+def visible_pairs(Tq, Tk, *, causal=True, window=0, prefix_len=0,
+                  q_offset=0) -> int:
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    qp = np.arange(Tq)[:, None] + q_offset
+    kp = np.arange(Tk)[None, :]
+    m = np.ones((Tq, Tk), bool)
+    if causal:
+        m = kp <= qp
+        if window > 0:
+            m = m & (kp > qp - window)
+        if prefix_len > 0:
+            m = m | (kp < prefix_len)
+    return int(m.sum())
+
+
+def _randn(shapes, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in shapes)
+
+
+FLASH_CASES = [   # (B, Tq, Tk, Hq, Hkv, D, options)
+    (1, 16, 16, 2, 2, 8, dict(causal=True)),
+    (2, 33, 33, 4, 2, 16, dict(causal=True)),                  # GQA, pad
+    (1, 64, 64, 2, 1, 32, dict(causal=True, window=16)),       # local
+    (1, 48, 48, 2, 2, 16, dict(causal=True, softcap=30.0)),    # gemma2
+    (1, 40, 40, 2, 1, 16, dict(causal=True, prefix_len=8)),    # vlm
+    (2, 24, 24, 2, 2, 8, dict(causal=False)),                  # encoder
+    (1, 384, 384, 2, 2, 16, dict(causal=True, prefix_len=256)),
+    (2, 20, 50, 4, 2, 16, dict(causal=True, q_offset=30)),
+    (1, 200, 200, 8, 2, 128, dict(causal=True, window=70, softcap=20.0)),
+    (1, 130, 130, 4, 4, 256, dict(causal=True)),
+    (1, 65, 97, 4, 1, 50, dict(causal=False)),                 # D % 4 != 0
+    (2, 70, 70, 8, 2, 6, dict(causal=True, q_offset=5)),
+    (1, 300, 300, 32, 8, 128, dict(causal=True)),              # Jamba heads
+]
+SCAN_CASES = [    # (B, T, D, a dtype, x dtype, with h0)
+    (2, 13, 40, torch.float32, torch.float32, True),
+    (1, 1, 7, torch.float32, torch.float32, True),
+    (3, 256, 130, torch.float32, torch.float32, False),
+    (2, 300, 33, torch.float32, torch.bfloat16, True),
+    (2, 17, 24, torch.bfloat16, torch.bfloat16, False),
+    (1, 5, 1000, torch.bfloat16, torch.float32, True),
+]
+SCAN_FULL = ((4, 256, 131072), (1, 256, 131072), (4, 1, 131072))
+
+
+def _scan_inputs(B, T, D, a_dtype, x_dtype, with_h0, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = (0.5 + 0.5 * torch.rand((B, T, D), generator=g, device=dev))
+    x = torch.randn((B, T, D), generator=g, device=dev)
+    h0 = (torch.randn((B, D), generator=g, device=dev) if with_h0
+          else None)
+    return a.to(a_dtype), x.to(x_dtype), h0
+
+
+def lm_kernel_phase(dev) -> tuple[dict, dict]:
+    """flash_attention and linear_scan against their plain versions on
+    random cases covering every feature, then at the full-width shapes of
+    the Jamba hybrid, timed beside the plain version and the library."""
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import ssm as kssm
+
+    records, checks = {}, {}
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (B, Tq, Tk, Hq, Hkv, D, kw) in enumerate(FLASH_CASES):
+        for dtype in errs:
+            q, k, v = _randn(((B, Tq, Hq, D), (B, Tk, Hkv, D),
+                              (B, Tk, Hkv, D)), dtype, i, dev)
+            got = kattn.flash_attention(q, k, v, **kw).float().cpu()
+            want = kattn.flash_attention_plain(q, k, v, **kw).float().cpu()
+            rtol, atol = FLASH_TOL[dtype]
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                                       atol=atol,
+                                       err_msg=f"flash {dtype} {i} {kw}")
+            errs[dtype] = max(errs[dtype], max_abs_err(got, want))
+        vis = torch.empty(B * Hq * -(-Tq // kattn.BQ), dtype=torch.int32,
+                          device=dev)
+        kattn.flash_attention(q, k, v, visited=vis, **kw)
+        plan = B * Hq * kattn.visited_tiles(Tq, Tk, **{
+            o: kw[o] for o in ("causal", "window", "prefix_len", "q_offset")
+            if o in kw})
+        assert int(vis.sum()) == plan, ("visited tiles", i, int(vis.sum()),
+                                        plan)
+    checks["flash_cases"] = 2 * len(FLASH_CASES)
+    checks["flash_cases_max_abs_err"] = {str(k): v for k, v in errs.items()}
+    checks["flash_tol_rtol_atol"] = {str(k): v for k, v in FLASH_TOL.items()}
+
+    # the Jamba forward's attention: B=1, T=4096, 32/8 heads, D=128, bf16
+    B, T, Hq, Hkv, D = 1, 4096, 32, 8, 128
+    q, k, v = _randn(((B, T, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)),
+                     torch.bfloat16, 99, dev)
+    got = kattn.flash_attention(q, k, v)
+    again = kattn.flash_attention(q, k, v)
+    want = kattn.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "flash_attention differs between launches"
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    err_full = max_abs_err(got.float().cpu(), want.float().cpu())
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol, err_msg="flash full width")
+    checks["flash_full_width_max_abs_err"] = err_full
+    del want
+    vis = torch.empty(B * Hq * (T // kattn.BQ), dtype=torch.int32,
+                      device=dev)
+    kattn.flash_attention(q, k, v, visited=vis)
+    checks["flash_full_width_tiles_visited_share"] = int(vis.sum()) / (
+        B * Hq * (T // kattn.BQ) * (T // kattn.BK))
+    # the library yardstick: PyTorch's fused attention, KV heads expanded
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    lib = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+    checks["flash_full_width_vs_sdpa_max_abs_err"] = max_abs_err(
+        got.float().cpu(), lib.float().cpu())
+    flops = 4 * D * B * Hq * visible_pairs(T, T)
+    n_bytes = q.nbytes + k.nbytes + v.nbytes + got.nbytes
+    records["flash_attention"] = dict(
+        shape=f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
+        max_abs_err=max(err_full, *errs.values()),
+        max_abs_err_full_width=err_full,
+        ms=time_ms(lambda: kattn.flash_attention(q, k, v), n=30, warmup=3),
+        plain_ms=time_ms(lambda: kattn.flash_attention_plain(q, k, v),
+                         n=10, warmup=2),
+        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), n=30,
+                           warmup=3),
+        bytes=n_bytes, ops=flops, ops_per_s=H100_BF16_OPS_PER_S,
+        bound_ms_f32=bound_ms(n_bytes, flops)[0])
+    del q, k, v, qt, kt, vt, got, again, lib
+
+    # ---- linear_scan: bit-equal to the plain version everywhere ----------
+    for i, (B, T, D, adt, xdt, with_h0) in enumerate(SCAN_CASES):
+        a, x, h0 = _scan_inputs(B, T, D, adt, xdt, with_h0, i, dev)
+        y, h = kssm.linear_scan(a, x, h0)
+        wy, wh = kssm.linear_scan_plain(a, x, h0)
+        cy, ch = kssm.linear_scan_plain(
+            a.cpu(), x.cpu(), None if h0 is None else h0.cpu())
+        assert y.dtype == xdt and h.dtype == torch.float32
+        assert torch.equal(y, wy) and torch.equal(h, wh), (
+            f"linear_scan case {i}: not bit-equal to its plain version")
+        assert torch.equal(y.cpu(), cy) and torch.equal(h.cpu(), ch), (
+            f"linear_scan case {i}: not bit-equal to the CPU plain version")
+    checks["scan_cases_bit_equal"] = len(SCAN_CASES)
+    times = {}
+    for B, T, D in SCAN_FULL:
+        a, x, h0 = _scan_inputs(B, T, D, torch.float32, torch.float32, True,
+                                T, dev)
+        y, h = kssm.linear_scan(a, x, h0)
+        wy, wh = kssm.linear_scan_plain(a, x, h0)
+        assert torch.equal(y, wy) and torch.equal(h, wh), (
+            f"linear_scan {(B, T, D)}: not bit-equal to its plain version")
+        n_bytes = a.nbytes + x.nbytes + y.nbytes + h0.nbytes + h.nbytes
+        times[f"{B}x{T}x{D}"] = dict(
+            ms=time_ms(lambda: kssm.linear_scan(a, x, h0), n=50),
+            plain_ms=time_ms(lambda: kssm.linear_scan_plain(a, x, h0), n=10,
+                             warmup=2),
+            bytes=n_bytes, ops=2 * B * T * D,
+            bound_ms=bound_ms(n_bytes, 2 * B * T * D)[0])
+        del a, x, h0, y, h, wy, wh
+    checks["scan_full_width"] = times
+    main = times["4x256x131072"]
+    records["linear_scan"] = dict(
+        shape="B=4 T=256 D=131072 f32 (one prefill chunk of lm_serve; "
+              "decode steps are 4x1x131072)",
+        max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=None, bytes=main["bytes"], ops=main["ops"])
+    torch.cuda.empty_cache()
+    return records, checks
+
+
+def _forward_record(cfg, params, tokens) -> tuple:
+    """One timed lm.forward with the launch counters set to 0 just before
+    and read just after."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, _ = lm.forward(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return logits, wall, kernels.launch_counts()
+
+
+def _serve(cfg, params, prompts, max_new, max_len, device, timers=None):
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_size=len(prompts), max_len=max_len,
+                      eos_id=-1, device=device)
+    if timers is not None:
+        def timed(name, fn):
+            def call(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                timers[name].append(time.perf_counter() - t0)
+                return out
+            return call
+        eng._prefill = timed("prefill", eng._prefill)
+        eng._decode = timed("decode", eng._decode)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+    stats = eng.run()
+    return [r.output for r in sorted(eng.done, key=lambda r: r.rid)], stats
+
+
+def lm_phase(dev) -> dict:
+    """The Jamba hybrid at full width (16 of its 32 layers: 32 take ~103 GB
+    in bf16): forward and serve with launch counts, the kernel path against
+    the reference's plain path, and the reduced config card vs CPU."""
+    from repro_torch import configs, kernels
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+
+    out = {}
+    cfg = configs.get(LM_ARCH, n_layers=16, attn_impl="pallas")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    leaves = [t for _, t in cm.leaves(params)]
+    model = dict(layers=cfg.n_layers, params=sum(t.numel() for t in leaves),
+                 param_bytes=sum(t.nbytes for t in leaves),
+                 init_s=time.perf_counter() - t0)
+    print(json.dumps({"lm_model": model}))
+
+    # ---- lm_forward_full_width: B=1, T=4096 ------------------------------
+    T = 4096
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab, (1, T))).to(dev)
+    # the entry point itself turns reduced-precision products off
+    mm = torch.backends.cuda.matmul
+    mm.allow_tf32 = mm.allow_bf16_reduced_precision_reduction = True
+    _forward_record(cfg, params, tokens)      # first call: cuBLAS plans
+    assert not (mm.allow_tf32 or mm.allow_bf16_reduced_precision_reduction), (
+        "lm.forward left reduced-precision products on")
+    logits, wall, launches = _forward_record(cfg, params, tokens)
+    rec = dict(batch=1, tokens=T, wall_s=wall, tokens_per_s=T / wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               logits_finite=bool(torch.isfinite(logits).all()),
+               logits_std=float(logits.std()))
+    print(json.dumps({"lm_forward_full_width": rec}))
+    assert tuple(logits.shape) == (1, T, cfg.vocab), logits.shape
+    assert rec["logits_finite"], "lm_forward_full_width: non-finite logits"
+    n_attn = sum(ls.kind == "attn" for ls in lm.layer_kinds(cfg))
+    n_mamba = cfg.n_layers - n_attn
+    assert launches["flash_attention"] == n_attn == 2, launches
+    assert launches["linear_scan"] == n_mamba * T // cfg.scan_chunk == 224, (
+        launches)
+    out["lm_forward_full_width"] = rec
+    del logits
+
+    # ---- lm_serve_full_width: 4 prompts of 384-512 tokens, 32 new ---------
+    rng = np.random.RandomState(2)
+    lens = [512] + [int(n) for n in rng.randint(384, 513, 3)]
+    prompts = [[int(t) for t in rng.randint(2, cfg.vocab, n)] for n in lens]
+    _serve(cfg, params, [prompts[0][:16]], 2, 64, dev)   # warm-up
+    timers = {"prefill": [], "decode": []}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    outs, stats = _serve(cfg, params, prompts, 32, 1024, dev, timers)
+    launches = kernels.launch_counts()
+    rec = dict(stats, prompt_lens=lens, new_tokens=32,
+               prefill_s=timers["prefill"][0],
+               decode_ms_per_step=1e3 * statistics.median(timers["decode"]),
+               decode_steps=len(timers["decode"]),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches, first_tokens=[o[:4] for o in outs])
+    print(json.dumps({"lm_serve_full_width": rec}))
+    assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o)
+               for o in outs), "lm_serve_full_width: bad outputs"
+    assert launches["linear_scan"] == n_mamba * (2 + 31) == 462, launches
+    assert launches["flash_attention"] == 0, launches
+    out["lm_serve_full_width"] = rec
+
+    # ---- where the time goes: one forward, one serve batch, profiled -----
+    _, prof_f = profiled(lambda: lm.forward(cfg, params, {"tokens": tokens}))
+    _, prof_s = profiled(lambda: _serve(cfg, params, prompts, 32, 1024, dev))
+    out["lm_profile"] = dict(forward=prof_f, serve=prof_s)
+    print(json.dumps({"lm_profile": out["lm_profile"]}))
+
+    # ---- lm_kernel_vs_plain: first 8 layers, pallas against chunked ------
+    blocks8 = [cm.tree_map(lambda _, t: t[:1], b) for b in params["blocks"]]
+    params8 = dict(params, blocks=blocks8)
+    cfg8 = dataclasses.replace(cfg, n_layers=8)
+    cfg8c = dataclasses.replace(cfg8, attn_impl="chunked")
+    tokens = tokens[:, :1024]
+    lk, wall_k, launch_k = _forward_record(cfg8, params8, tokens)
+    lp, wall_p, launch_p = _forward_record(cfg8c, params8, tokens)
+    rel = float((lk - lp).norm() / lp.norm())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    del lk, lp
+    sprompts = [[int(t) for t in rng.randint(2, cfg.vocab, n)]
+                for n in (100, 160, 130, 200)]
+    tok_k, _ = _serve(cfg8, params8, sprompts, 8, 256, dev)
+    tok_p, _ = _serve(cfg8c, params8, sprompts, 8, 256, dev)
+    rec = dict(layers=8, tokens=1024, rel_l2_err=rel,
+               rel_l2_tol=LM_REL_L2_TOL, argmax_agree=agree,
+               wall_s_kernels=wall_k, wall_s_plain=wall_p,
+               launches_kernels=launch_k, launches_plain=launch_p,
+               serve_tokens_equal=tok_k == tok_p)
+    print(json.dumps({"lm_kernel_vs_plain": rec}))
+    assert launch_k["flash_attention"] == 1, launch_k
+    assert launch_k["linear_scan"] == 7 * 1024 // cfg.scan_chunk, launch_k
+    assert launch_p["flash_attention"] == launch_p["linear_scan"] == 0, (
+        launch_p)
+    assert rel <= LM_REL_L2_TOL and agree >= LM_ARGMAX_AGREE, rec
+    assert tok_k == tok_p, "lm_kernel_vs_plain: greedy tokens differ"
+    out["lm_kernel_vs_plain"] = rec
+    del params, params8, blocks8, leaves
+    torch.cuda.empty_cache()
+
+    # ---- lm_cross_check: reduced config in f32, card against CPU ---------
+    cfg = configs.get_reduced(LM_ARCH, attn_impl="pallas")
+    host = lm.init_params(cfg, 0, device="cpu")
+    card_params = cm.tree_map(lambda _, t: t.to(dev), host)
+    toks = np.random.RandomState(3).randint(0, cfg.vocab, (2, 40))
+    lc, _, launches = _forward_record(cfg, card_params,
+                                      torch.from_numpy(toks).to(dev))
+    lh, _ = lm.forward(cfg, host, {"tokens": toks})
+    err = max_abs_err(lc.cpu(), lh)
+    np.testing.assert_allclose(lc.cpu().numpy(), lh.numpy(),
+                               rtol=LM_CROSS_TOL, atol=LM_CROSS_TOL,
+                               err_msg="lm_cross_check: card vs cpu logits")
+    cprompts = [[int(t) for t in rng.randint(2, cfg.vocab, n)]
+                for n in (3, 9, 5, 12)]
+    tok_c, _ = _serve(cfg, card_params, cprompts, 6, 32, dev)
+    tok_h, _ = _serve(cfg, host, cprompts, 6, 32, "cpu")
+    rec = dict(max_abs_err=err, launches=launches,
+               serve_tokens_equal=tok_c == tok_h)
+    print(json.dumps({"lm_cross_check": rec}))
+    assert launches["flash_attention"] == 1 and launches["linear_scan"] > 0
+    assert tok_c == tok_h, "lm_cross_check: card and CPU tokens differ"
+    out["lm_cross_check"] = rec
+    out["lm_model"] = model
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tasks", type=int, default=2000,
@@ -427,8 +818,8 @@ def main() -> int:
 
     record = {"card": card()}
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.device import match_xla_matmul
+    match_xla_matmul()
 
     t0 = time.perf_counter()
     build_s = _build.build_all()
@@ -439,11 +830,15 @@ def main() -> int:
     print(json.dumps({"build": record["build"]}))
 
     kern, checks = kernel_phase(dev, n_capture=300)
+    lm_kern, lm_checks = lm_kernel_phase(dev)
+    kern.update(lm_kern)
+    checks.update(lm_checks)
     record["kernel_checks"] = checks
     print(json.dumps({"kernel_checks": checks}))
     record["main_path"] = main_path(args.tasks)
     record["cross_check"] = cross_check()
     record["profile"] = profile_phase(150)
+    record["main_path"].update(lm_phase(dev))
 
     sources = {"maxmin_solve": ("src/repro_torch/csrc/maxmin.cu",
                                 "src/repro/kernels/maxmin.py:201",
@@ -453,17 +848,24 @@ def main() -> int:
                               "above_gate"),
                "masked_min": ("src/repro_torch/csrc/horizon.cu",
                               "src/repro/kernels/horizon.py:55",
-                              "full_width")}
+                              "full_width"),
+               "flash_attention": ("src/repro_torch/csrc/attention.cu",
+                                   "src/repro/kernels/attention.py:103",
+                                   "lm_forward_full_width"),
+               "linear_scan": ("src/repro_torch/csrc/scan.cu",
+                               "src/repro/kernels/ssm.py:57",
+                               "lm_serve_full_width")}
     rows = []
     for name, (src, replaces, cell) in sources.items():
         k = kern[name]
-        b_ms, b_by = bound_ms(k["bytes"], k["ops"])
+        b_ms, b_by = bound_ms(k["bytes"], k["ops"],
+                              k.get("ops_per_s", H100_F32_OPS_PER_S))
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=record["main_path"][cell]["launches"][name],
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=k["shape"],
-            main_path_cell=cell))
+            bound_ms=b_ms, bound_by=b_by, library_ms=k.get("library_ms"),
+            shape=k["shape"], main_path_cell=cell))
     record["kernels"] = rows
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

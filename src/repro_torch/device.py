@@ -22,3 +22,19 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            f"available")
     return dev
+
+
+def match_xla_matmul() -> None:
+    """Make CUDA products accumulate as XLA's do: f32 products in full f32
+    (no TF32, in matmuls or cuDNN) and bf16 products with f32 reductions.
+    These are process-wide PyTorch settings; the LM entry points set them
+    on each call on the card (:func:`match_xla_matmul_on`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def match_xla_matmul_on(device) -> None:
+    """:func:`match_xla_matmul` when ``device`` is a CUDA device."""
+    if torch.device(device).type == "cuda":
+        match_xla_matmul()

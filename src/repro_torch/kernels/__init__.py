@@ -6,10 +6,12 @@ from __future__ import annotations
 
 
 def _wrappers():
-    from . import horizon, maxmin
+    from . import attention, horizon, maxmin, ssm
     return {"maxmin_solve": maxmin.maxmin_solve,
             "fill_stats": maxmin.fill_stats,
-            "masked_min": horizon.masked_min}
+            "masked_min": horizon.masked_min,
+            "flash_attention": attention.flash_attention,
+            "linear_scan": ssm.linear_scan}
 
 
 def launch_counts() -> dict[str, int]:

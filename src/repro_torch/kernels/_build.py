@@ -20,10 +20,19 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("maxmin", "horizon")
+SOURCES = ("maxmin", "horizon", "scan", "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false where the kernel must round each product and sum as its plain
+# version does (bit-equal results); the attention kernel is held to a
+# tolerance instead and keeps fused multiply-adds.
+SOURCE_FLAGS = {"maxmin": ("-fmad=false",), "horizon": ("-fmad=false",),
+                "scan": ("-fmad=false",), "attention": ()}
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -42,7 +51,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -58,7 +67,8 @@ def build_all(names=SOURCES) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())

@@ -1,0 +1,155 @@
+"""Block-wise (flash) attention (source: ``csrc/attention.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/attention.py``
+``flash_attention``.  A CUDA tensor launches the hand-written kernel (or the
+wrapper raises); a CPU tensor runs :func:`flash_attention_plain`, the
+materialised softmax of ``repro/kernels/ref.py`` ``attention_ref``.
+
+Masks follow that oracle, which ``models/attention._mask`` matches on every
+case a model reaches.  The Pallas kernel departs from it in two corners
+(ROADMAP queue 3): it drops prefix keys beyond the q tile when
+``prefix_len`` exceeds its KV block, and it applies no per-element window
+mask without ``causal``.  The kernel here keeps every tile that holds
+prefix keys, and the wrapper refuses ``causal=False`` with ``window > 0``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .maxmin import _route, _stream
+
+NEG = -1e30
+BQ, BK = 64, 32          # the kernel's q and KV tile heights
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
+                          prefix_len=0, q_offset=0, scale=None):
+    """``ref.attention_ref``: [B,Tq,Hq,D] x [B,Tk,Hkv,D] -> q's shape and
+    dtype, f32 softmax over the whole score matrix."""
+    B, Tq, Hq, D = q.shape
+    _, Tk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    qr = q.reshape(B, Tq, Hkv, g, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qr.float(), k.float()) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(Tq, device=q.device) + q_offset
+    kpos = torch.arange(Tk, device=q.device)
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    if prefix_len > 0:
+        mask = mask | (kpos[None, :] < prefix_len)
+    logits = torch.where(mask, logits, NEG)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Tq, Hq, D).to(q.dtype)
+
+
+def visited_tiles(Tq, Tk, *, causal=True, window=0, prefix_len=0,
+                  q_offset=0) -> int:
+    """KV tiles one (batch, head) visits: the kernel's skip rule, counted on
+    the host (a tile is visited iff some key in it is visible to some row of
+    the q tile)."""
+    n = 0
+    for q0 in range(0, Tq, BQ):
+        qp0, qp1 = q_offset + q0, q_offset + min(q0 + BQ, Tq) - 1
+        for k0 in range(0, Tk, BK):
+            k_last = min(k0 + BK, Tk) - 1
+            n += (not causal or (prefix_len > 0 and k0 < prefix_len)
+                  or (k0 <= qp1 and (window <= 0 or k_last > qp0 - window)))
+    return n
+
+
+def check_launch_limits(B: int, Tq: int, Tk: int, Hq: int, D: int, *,
+                        window: int = 0, prefix_len: int = 0,
+                        q_offset: int = 0) -> None:
+    """The kernel's own shape limits: one grid row per (batch, q head), at
+    most 65535; D <= 256; positions (up to ``q_offset + Tq``) and the mask
+    sizes in int32.  Offsets are 64-bit inside, so the tensors' sizes are
+    not limited."""
+    if B * Hq > 65535 or D > 256 or Tk < 1 or Tq < 1:
+        raise ValueError(f"flash_attention: needs B * Hq <= 65535, D <= 256 "
+                         f"and Tq, Tk >= 1, got B={B}, Hq={Hq}, D={D}, "
+                         f"Tq={Tq}, Tk={Tk}")
+    if max(q_offset + Tq, Tk, window, prefix_len) >= 2 ** 31:
+        raise ValueError("flash_attention: positions must fit in int32")
+
+
+def _lib():
+    lib = _build.load("attention")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _check(q, k, v, causal, window):
+    if not causal and window > 0:
+        raise ValueError("flash_attention: a sliding window needs "
+                         "causal=True (the oracle and the model's mask "
+                         "disagree without it)")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: expected q [B,Tq,Hq,D] and k, v "
+                         f"[B,Tk,Hkv,D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Tq, Hq, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or Hq % k.shape[2]:
+        raise ValueError(f"flash_attention: k/v shape {tuple(k.shape)} does "
+                         f"not fit q shape {tuple(q.shape)}")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    prefix_len=0, q_offset=0, scale=None, visited=None):
+    """Attention of q [B,Tq,Hq,D] over k, v [B,Tk,Hkv,D] (KV head = q head
+    // (Hq/Hkv)), output in q's dtype.  ``q_offset`` is the absolute position
+    of q[:, 0].  ``visited``, an int32 CUDA tensor of ``B*Hq*ceil(Tq/64)``
+    entries, receives each block's count of visited KV tiles."""
+    _check(q, k, v, causal, window)
+    if not _route(q, "flash_attention"):
+        return flash_attention_plain(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            prefix_len=prefix_len, q_offset=q_offset, scale=scale)
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share f32 or bf16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("flash_attention: inputs lie on different devices")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention: inputs must be contiguous")
+    check_launch_limits(B, Tq, Tk, Hq, D, window=window,
+                        prefix_len=prefix_len, q_offset=q_offset)
+    n_blocks = B * Hq * -(-Tq // BQ)
+    if visited is not None and (visited.dtype != torch.int32
+                                or visited.numel() != n_blocks
+                                or visited.device != q.device):
+        raise ValueError(f"flash_attention: visited must be int32 with "
+                         f"{n_blocks} entries on {q.device}")
+    scale = float(D ** -0.5) if scale is None else float(scale)
+    out = torch.empty_like(q)
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if visited is None else visited.data_ptr(), B, Tq, Tk, Hq, Hkv, D,
+        scale, float(softcap), int(bool(causal)), int(window),
+        int(prefix_len), int(q_offset), _DTYPE_CODE[q.dtype],
+        _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

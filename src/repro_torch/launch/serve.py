@@ -1,0 +1,67 @@
+"""Serving launcher: bring up a batched ServeEngine for a ported --arch
+(port of ``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+        --requests 8 --batch 4 --max-new 16
+
+Runs on the GPU unless ``--device cpu`` is given.  Reduced configs by
+default, ``--full`` for the published widths (weights random from
+``--seed``).  Checkpoint loading (``--ckpt-dir``) belongs to the training
+stack, which is not ported (ROADMAP queue 1, item 14).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch import configs
+from repro_torch.device import match_xla_matmul, resolve_device
+from repro_torch.models import lm
+from repro_torch.serve.engine import Request, ServeEngine
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(configs.ARCHS))
+    ap.add_argument("--full", action="store_true",
+                    help="full config (default: reduced)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cpu to run the plain PyTorch path (default: GPU)")
+    args = ap.parse_args(argv)
+
+    if args.ckpt_dir:
+        raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
+                                  "(ROADMAP queue 1, item 14)")
+    dev = resolve_device(args.device)
+    match_xla_matmul()
+    cfg = (configs.get(args.arch) if args.full
+           else configs.get_reduced(args.arch))
+    params = lm.init_params(cfg, args.seed, device=dev)
+    eng = ServeEngine(cfg, params, batch_size=args.batch,
+                      max_len=args.max_len, eos_id=-1,
+                      temperature=args.temperature, seed=args.seed,
+                      device=dev)
+    rng = np.random.RandomState(args.seed + 1)
+    for rid in range(args.requests):
+        plen = int(rng.randint(2, 10))
+        prompt = [int(t) for t in rng.randint(2, cfg.vocab, plen)]
+        eng.submit(Request(rid=rid, prompt=prompt,
+                           max_new_tokens=args.max_new))
+    stats = eng.run()
+    print(f"{stats['requests']} requests | {stats['tokens']} tokens | "
+          f"{stats['tokens_per_s']:.1f} tok/s | "
+          f"p50 {stats['p50_latency_s']:.2f}s p99 "
+          f"{stats['p99_latency_s']:.2f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

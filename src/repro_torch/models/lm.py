@@ -1,0 +1,490 @@
+"""Composable LM stacks (port of ``repro/models/lm.py``): the dense-attention
+and hybrid (Mamba + attention, MoE) families.
+
+One :class:`ModelConfig` describes an architecture.  Layers are grouped into
+the shortest repeating *pattern* (Jamba -> its 8-layer period) and the
+parameters of each pattern position are stacked on a leading repeats axis,
+as in the reference; :func:`apply_stack` loops over repeats x pattern in
+Python and indexes the stacked leaves.  The RWKV (``ssm``), enc-dec and VLM
+families are not ported (ROADMAP queue 1, item 14) and raise.
+
+Public API: :func:`lm_spec`, :func:`forward` / :func:`forward_hidden`
+(scoring logits), :func:`init_cache` / :func:`prefill` /
+:func:`decode_step` (serving).  The device is the parameters' device.  The
+cache is ``{"layers": [...], "index": int}`` in the reference's layout with
+a host-int index; :func:`prefill` and :func:`decode_step` write the new
+keys, values and states into its tensors in place and return it with the
+index advanced.
+
+On the card, :func:`forward_hidden` (hence :func:`forward`) and the cache
+path set :func:`repro_torch.device.match_xla_matmul` on each call, so that
+bf16 and f32 products accumulate in f32 as XLA's do.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..device import match_xla_matmul_on
+from . import common as cm
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from .attention import attention, cache_update
+from .common import spec, stack_specs
+
+UNPORTED_FAMILIES = ("ssm", "encdec", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"     # dense | moe | hybrid | ssm | encdec | vlm
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_head: int = 32
+    d_ff: int = 256
+    vocab: int = 512
+
+    # attention flavour
+    use_rope: bool = True
+    rope_theta: float = 10_000.0
+    window: int = 0                 # sliding-window size for local layers
+    local_global_period: int = 0    # >0: layer i local iff i % period != period-1
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    attn_scale: float | None = None
+    qkv_bias: bool = False
+    parallel_block: bool = False    # command-r: x + attn(h) + ffn(h)
+    sandwich_norm: bool = False     # gemma2 pre+post norms
+
+    # norm / act / embeddings
+    norm: str = "rms"               # rms | layer
+    norm_eps: float = 1e-6
+    norm_offset: float = 0.0        # 1.0 => gemma (1+w) convention
+    act: str = "silu"
+    tie_embeddings: bool = True
+    embed_scale: float | None = None     # gemma: sqrt(d_model)
+    logit_scale: float = 1.0
+    embed_multiplier: float = 1.0        # granite
+    residual_multiplier: float = 1.0     # granite
+    pos_embed: str = "rope"              # rope | sinusoidal | none
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_period: int = 1
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+
+    # hybrid (jamba): attention every `attn_period` layers at `attn_offset`
+    attn_period: int = 0
+    attn_offset: int = 4
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+
+    # rwkv
+    rwkv_head_size: int = 64
+    wkv_impl: str = "matmul"        # matmul (GLA-chunked) | scan
+
+    # enc-dec
+    enc_layers: int = 0
+
+    # runtime knobs
+    compute_dtype: str = "bfloat16"
+    attn_impl: str = "chunked"      # chunked | naive | pallas
+    scan_chunk: int = 256
+    q_chunk: int = 512
+    k_chunk: int = 1024
+    remat: bool = True
+    remat_policy: str = "nothing"   # nothing | dots | offloadable
+
+    @property
+    def d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return cm.torch_dtype(self.compute_dtype)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            f"repro_torch yet (ROADMAP queue 1, item 14)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str                  # attn | mamba | rwkv
+    moe: bool = False
+    window: int = 0
+    causal: bool = True
+    cross: bool = False
+
+
+def layer_kinds(cfg: ModelConfig, *, role: str = "decoder",
+                n_layers: int | None = None) -> list[LayerSpec]:
+    n = n_layers if n_layers is not None else cfg.n_layers
+    out = []
+    for i in range(n):
+        if cfg.family == "ssm":
+            kind = "rwkv"
+        elif cfg.attn_period > 0:
+            kind = ("attn" if i % cfg.attn_period == cfg.attn_offset
+                    else "mamba")
+        else:
+            kind = "attn"
+        moe = (cfg.n_experts > 0
+               and i % cfg.moe_period == cfg.moe_offset
+               and kind != "rwkv")
+        if cfg.local_global_period > 0:
+            window = (cfg.window
+                      if i % cfg.local_global_period
+                      != cfg.local_global_period - 1 else 0)
+        else:
+            window = cfg.window
+        out.append(LayerSpec(
+            kind=kind, moe=moe, window=window,
+            causal=(role != "encoder"), cross=(role == "xdecoder")))
+    return out
+
+
+def find_pattern(kinds: list[LayerSpec]) -> tuple[list[LayerSpec], int]:
+    """Shortest repeating prefix covering the whole layer list."""
+    n = len(kinds)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(kinds[i] == kinds[i % p] for i in range(n)):
+            return kinds[:p], n // p
+    return kinds, 1
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+def _norm_spec(cfg: ModelConfig, d: int) -> dict:
+    if cfg.norm == "layer":
+        return {"w": spec((d,), ("embed",), init="ones"),
+                "b": spec((d,), ("embed",), init="zeros")}
+    init = "zeros" if cfg.norm_offset else "ones"
+    return {"w": spec((d,), ("embed",), init=init)}
+
+
+def _apply_norm(cfg: ModelConfig, p: dict, x):
+    if cfg.norm == "layer":
+        return cm.layer_norm(x, p["w"], p["b"], eps=cfg.norm_eps)
+    return cm.rms_norm(x, p["w"], eps=cfg.norm_eps, offset=cfg.norm_offset)
+
+
+def _attn_spec(cfg: ModelConfig) -> dict:
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = {
+        "wq": spec((d, hq, dh), ("embed", "q_heads", "head")),
+        "wk": spec((d, hkv, dh), ("embed", "kv_heads", "head")),
+        "wv": spec((d, hkv, dh), ("embed", "kv_heads", "head")),
+        "wo": spec((hq, dh, d), ("q_heads", "head", "embed"),
+                   fan_in=hq * dh),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = spec((hq, dh), ("q_heads", "head"), init="zeros")
+        s["bk"] = spec((hkv, dh), ("kv_heads", "head"), init="zeros")
+        s["bv"] = spec((hkv, dh), ("kv_heads", "head"), init="zeros")
+    return s
+
+
+def _ffn_spec(cfg: ModelConfig, ls: LayerSpec) -> dict:
+    if ls.moe:
+        return moe_mod.moe_spec(cfg.d_model, cfg.d_ff, cfg.n_experts)
+    return {
+        "w_gu": spec((cfg.d_model, 2 * cfg.d_ff), ("embed", "mlp")),
+        "w_down": spec((cfg.d_ff, cfg.d_model), ("mlp", "embed")),
+    }
+
+
+def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> dict:
+    d = cfg.d_model
+    blk: dict = {"ln": _norm_spec(cfg, d)}
+    if ls.kind == "attn":
+        blk["attn"] = _attn_spec(cfg)
+    else:
+        blk["mamba"] = ssm_mod.mamba_spec(
+            d, d_inner=cfg.d_inner, d_state=cfg.mamba_d_state,
+            d_conv=cfg.mamba_d_conv)
+    if cfg.sandwich_norm:
+        blk["ln_post"] = _norm_spec(cfg, d)
+    if not cfg.parallel_block:
+        blk["ffn_ln"] = _norm_spec(cfg, d)
+        if cfg.sandwich_norm:
+            blk["ffn_ln_post"] = _norm_spec(cfg, d)
+    blk["ffn"] = _ffn_spec(cfg, ls)
+    return blk
+
+
+def lm_spec(cfg: ModelConfig) -> dict:
+    _check_ported(cfg)
+    pattern, repeats = find_pattern(layer_kinds(cfg))
+    tree: dict = {
+        "embed": spec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                      init="normal", scale=1.0),
+        "final_norm": _norm_spec(cfg, cfg.d_model),
+        "blocks": [stack_specs(layer_param_spec(cfg, ls), repeats)
+                   for ls in pattern],
+    }
+    if not cfg.tie_embeddings:
+        tree["unembed"] = spec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    return tree
+
+
+def init_params(cfg: ModelConfig, seed: int, *, device=None):
+    """Random parameters of ``cfg`` from ``seed``, made on ``device`` (the
+    GPU by default) at their storage dtypes (``common.storage_dtype``)."""
+    dev = cm.resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return cm.materialize(lm_spec(cfg), gen, device=dev,
+                          compute_dtype=cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+
+def _attn_core(cfg: ModelConfig, ls: LayerSpec, p: dict, h, positions, *,
+               cache=None, index=None):
+    """h (normed input) -> (attention output, cache)."""
+    q = torch.einsum("btd,dhk->bthk", h, p["wq"].to(h.dtype))
+    k = torch.einsum("btd,dhk->bthk", h, p["wk"].to(h.dtype))
+    v = torch.einsum("btd,dhk->bthk", h, p["wv"].to(h.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(h.dtype)
+        k = k + p["bk"].to(h.dtype)
+        v = v + p["bv"].to(h.dtype)
+    if cfg.use_rope and cfg.pos_embed == "rope":
+        q = cm.rope(q, positions, theta=cfg.rope_theta)
+        k = cm.rope(k, positions, theta=cfg.rope_theta)
+
+    kv_len = None
+    q_offset = 0
+    if cache is not None:
+        k, v = cache_update(cache["k"], cache["v"], k, v, index)
+        kv_len = index + h.shape[1]
+        q_offset = index
+    o = attention(
+        q, k, v, causal=ls.causal, window=ls.window,
+        softcap=cfg.attn_softcap, q_offset=q_offset, scale=cfg.attn_scale,
+        kv_len=kv_len, impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
+        k_chunk=cfg.k_chunk)
+    return torch.einsum("bthk,hkd->btd", o, p["wo"].to(h.dtype))
+
+
+def _ffn_core(cfg: ModelConfig, ls: LayerSpec, p: dict, h):
+    """h (normed) -> (out, aux3) where aux3 = (lb, z, dropped)."""
+    if ls.moe:
+        y, aux = moe_mod.moe_apply(p, h, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   act=cfg.act)
+        return y, torch.stack([aux["moe_load_balance"], aux["moe_z_loss"],
+                               aux["moe_dropped_frac"]])
+    g, u = torch.chunk(h @ p["w_gu"].to(h.dtype), 2, dim=-1)
+    y = cm.ACTIVATIONS[cfg.act](g.float()).to(h.dtype) * u
+    return (y @ p["w_down"].to(h.dtype),
+            torch.zeros((3,), dtype=torch.float32, device=h.device))
+
+
+def apply_layer(cfg: ModelConfig, ls: LayerSpec, p: dict, x, positions, *,
+                cache=None, index=None):
+    """One attention or Mamba block with its FFN and residuals.  ``cache``
+    (this layer's slice of the serving cache) is updated in place.
+    Returns (x, aux3)."""
+    rm = cfg.residual_multiplier
+    h = _apply_norm(cfg, p["ln"], x)
+    if ls.kind == "attn":
+        o = _attn_core(cfg, ls, p["attn"], h, positions,
+                       cache=None if cache is None else cache["attn"],
+                       index=index)
+    else:
+        o, (conv, ssm) = ssm_mod.mamba_apply(
+            p["mamba"], h, d_state=cfg.mamba_d_state, chunk=cfg.scan_chunk,
+            impl=cfg.attn_impl,
+            state=None if cache is None else (cache["conv"], cache["ssm"]))
+        if cache is not None:
+            cache["conv"].copy_(conv)
+            cache["ssm"].copy_(ssm)
+
+    if cfg.parallel_block:
+        f, aux = _ffn_core(cfg, ls, p["ffn"], h)
+        return x + rm * (o + f), aux
+    if cfg.sandwich_norm:
+        o = _apply_norm(cfg, p["ln_post"], o)
+    x = x + rm * o
+    h = _apply_norm(cfg, p["ffn_ln"], x)
+    f, aux = _ffn_core(cfg, ls, p["ffn"], h)
+    if cfg.sandwich_norm:
+        f = _apply_norm(cfg, p["ffn_ln_post"], f)
+    return x + rm * f, aux
+
+
+def _at(tree, r: int):
+    """Repeat ``r`` of a tree of stacked leaves (views, no copies)."""
+    return cm.tree_map(lambda _, t: t[r], tree) if isinstance(
+        tree, dict) else tree[r]
+
+
+def apply_stack(cfg: ModelConfig, blocks, x, positions, *, caches=None,
+                index=None):
+    """Every layer in order (repeat-major); returns (x, aux3)."""
+    pattern, repeats = find_pattern(layer_kinds(cfg))
+    aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
+    for r in range(repeats):
+        for j, ls in enumerate(pattern):
+            x, a = apply_layer(
+                cfg, ls, _at(blocks[j], r), x, positions,
+                cache=None if caches is None else _at(caches[j], r),
+                index=index)
+            aux = aux + a
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+
+def _sinusoid(positions, d):
+    half = d // 2
+    dim = torch.arange(half, dtype=torch.float32, device=positions.device)
+    ang = positions[..., None].float() / (1e4 ** (dim / half))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens, positions):
+    x = params["embed"].to(cfg.cdtype)[tokens]
+    scale = cfg.embed_scale if cfg.embed_scale else 1.0
+    x = x * torch.tensor(scale * cfg.embed_multiplier, dtype=cfg.cdtype)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoid(positions, cfg.d_model).to(cfg.cdtype)
+    return x
+
+
+def unembed(cfg: ModelConfig, params, h):
+    """Normed hidden states -> f32 logits (softcapped / scaled)."""
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].to(h.dtype).T
+    else:
+        logits = h @ params["unembed"].to(h.dtype)
+    logits = logits.float() * cfg.logit_scale
+    return cm.softcap(logits, cfg.final_softcap)
+
+
+def logits_from(cfg: ModelConfig, params, x):
+    return unembed(cfg, params, _apply_norm(cfg, params["final_norm"], x))
+
+
+# ---------------------------------------------------------------------------
+# Top-level entry points
+# ---------------------------------------------------------------------------
+
+
+def _tokens(params, tokens):
+    """``tokens`` on the parameters' device, with XLA's product precision
+    set when that device is the card."""
+    dev = params["embed"].device
+    match_xla_matmul_on(dev)
+    return torch.as_tensor(tokens, dtype=torch.long, device=dev)
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Full-sequence logits for ``batch["tokens"]`` [B, T] (a tensor or an
+    array of ints).  Returns (logits [B, T, vocab] f32, aux3)."""
+    h, aux = forward_hidden(cfg, params, batch)
+    return unembed(cfg, params, h), aux
+
+
+def forward_hidden(cfg: ModelConfig, params, batch):
+    """Like :func:`forward` but stops at the final-normed hidden states."""
+    _check_ported(cfg)
+    tokens = _tokens(params, batch["tokens"])
+    T = tokens.shape[1]
+    positions = torch.arange(T, device=tokens.device)[None, :]
+    x = embed_tokens(cfg, params, tokens, positions)
+    x, aux = apply_stack(cfg, params["blocks"], x, positions)
+    return _apply_norm(cfg, params["final_norm"], x), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache_spec(cfg: ModelConfig, ls: LayerSpec, batch: int,
+                      max_len: int):
+    dt = cfg.cdtype
+    if ls.kind == "mamba":
+        return {
+            "conv": ((batch, cfg.mamba_d_conv - 1, cfg.d_inner), dt),
+            "ssm": ((batch, cfg.d_inner * cfg.mamba_d_state), torch.float32),
+        }
+    kv = ((batch, max_len, cfg.n_kv_heads, cfg.d_head), dt)
+    return {"attn": {"k": kv, "v": kv}}
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode cache as meta tensors (shapes and dtypes, no storage),
+    layer-stacked like the parameters; ``index`` is the host int 0."""
+    _check_ported(cfg)
+    pattern, repeats = find_pattern(layer_kinds(cfg))
+
+    def meta(node):
+        if isinstance(node, dict):
+            return {k: meta(v) for k, v in node.items()}
+        shape, dtype = node
+        return torch.empty((repeats,) + shape, dtype=dtype, device="meta")
+
+    return {"layers": [meta(_layer_cache_spec(cfg, ls, batch, max_len))
+                       for ls in pattern],
+            "index": 0}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+    dev = cm.resolve_device(device)
+    struct = cache_struct(cfg, batch, max_len)
+    return {"layers": cm.tree_map(
+                lambda _, t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+                struct["layers"]),
+            "index": struct["index"]}
+
+
+def _run_with_cache(cfg: ModelConfig, params, tokens, cache):
+    _check_ported(cfg)
+    tokens = _tokens(params, tokens)
+    T = tokens.shape[1]
+    index = int(cache["index"])
+    positions = index + torch.arange(T, device=tokens.device)[None, :]
+    x = embed_tokens(cfg, params, tokens, positions)
+    x, _ = apply_stack(cfg, params["blocks"], x, positions,
+                       caches=cache["layers"], index=index)
+    logits = logits_from(cfg, params, x)
+    return logits, {"layers": cache["layers"], "index": index + T}
+
+
+def prefill(cfg: ModelConfig, params, batch, cache):
+    """Run the prompt ``batch["tokens"]`` through the model, filling the
+    cache.  Returns (last-position logits, cache)."""
+    logits, cache = _run_with_cache(cfg, params, batch["tokens"], cache)
+    return logits[:, -1], cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache):
+    """One-token decode: tokens [B, 1] against the filled cache."""
+    logits, cache = _run_with_cache(cfg, params, tokens, cache)
+    return logits[:, -1], cache

@@ -30,7 +30,9 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 40
+    assert {PORT / "models" / "lm.py", PORT / "serve" / "engine.py",
+            PORT / "kernels" / "attention.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -56,6 +58,50 @@ def test_simulate_runs_without_jax_in_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_lm_forward_and_serve_run_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None      # any import of them now fails\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import lm\n"
+        "from repro_torch.serve.engine import Request, ServeEngine\n"
+        "cfg = configs.get_reduced('jamba-v0.1-52b', attn_impl='pallas')\n"
+        "params = lm.init_params(cfg, 0, device='cpu')\n"
+        "logits, _ = lm.forward(cfg, params, {'tokens': [[3, 1, 4, 1, 5]]})\n"
+        "assert logits.shape == (1, 5, cfg.vocab)\n"
+        "eng = ServeEngine(cfg, params, batch_size=2, max_len=16,\n"
+        "                  eos_id=-1, device='cpu')\n"
+        "eng.submit(Request(rid=0, prompt=[2, 3, 4], max_new_tokens=3))\n"
+        "eng.submit(Request(rid=1, prompt=[5], max_new_tokens=3))\n"
+        "assert eng.run()['tokens'] == 6\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_lm_entry_points_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = configs.get_reduced("jamba-v0.1-52b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(cfg, 1, 8)
+    params = lm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params, device="cuda")
 
 
 def test_no_silent_cpu_fallback():

@@ -247,4 +247,5 @@ def test_plain_path_counts_no_launches():
                                   f["live"], f["perf"])))
     horizon.masked_min(torch.ones(3), torch.ones(3, dtype=torch.bool))
     assert kernels.launch_counts() == {"maxmin_solve": 0, "fill_stats": 0,
-                                       "masked_min": 0}
+                                       "masked_min": 0, "flash_attention": 0,
+                                       "linear_scan": 0}
