@@ -10,7 +10,10 @@ Phases, each of which raises on failure (nothing is caught):
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, its edge cases, its run-to-run bit identity, and its
    time (CUDA events, median of 100 launches after warm-up) beside the
-   plain version's time and the bound of the work;
+   plain version's time and the bound of the work; fill_stats also as the
+   main path runs it, one round on a plan built once (its time, the plan's,
+   the public call's, and both kernels' device time alone from a CUDA
+   graph), bit-equal to the CPU plain version, with the longest segment;
 4. the main path at full width: 500 PM x 4096 VM under 2000 DAS-2-like
    tasks (the largest row of the repository's throughput grid), with the
    kernels' launch counters set to 0 just before and read just after;
@@ -19,12 +22,15 @@ Phases, each of which raises on failure (nothing is caught):
 5. cross-check: 20 PM x 1024 VM under 200 tasks twice on the card (the two
    runs must be bit-identical) and once on the CPU (exact integers and
    event counts, floats within rtol 1e-5 / atol 1e-6); then a shorter
-   full-width run under torch.profiler: device idle share, kernel launches
+   full-width run and the above-gate cell under torch.profiler: device
+   idle share, device time of each hand-written kernel, kernel launches
    and host reads per pass;
 6. LM kernels: flash_attention and linear_scan against their plain
-   versions on random cases covering every feature (f32 and bf16) and at
-   the Jamba hybrid's full-width shapes, timed beside the plain version,
-   the bound and (flash) PyTorch's scaled_dot_product_attention;
+   versions on random cases covering every feature (f32 on the CUDA-core
+   kernel, bf16 on the tensor-core one, each with its own tile shape and
+   visited-tile count) and at the Jamba hybrid's full-width shapes, timed
+   beside the plain version, the bound and (flash) PyTorch's
+   scaled_dot_product_attention;
 7. the Jamba hybrid LM at full width, cut from 32 to 16 layers to fit in
    HBM: lm.forward over 4096 tokens (lm_forward_full_width), then a
    ServeEngine batch of 4 prompts of 384-512 tokens with 32 new tokens each
@@ -63,6 +69,20 @@ RTOL, ATOL = 1e-5, 1e-6
 UNCOMPARED = ("energy_lo", "t_c")   # Kahan low words: never compared
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers, shared memory and spills of each kernel in a build log
+    (``nvcc -Xptxas -v``), by mangled name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = ""
+        elif name and ("spill" in ln or "Used" in ln):
+            out[name] = (out[name] + "; " + ln.split(":", 1)[-1].strip()
+                         if out[name] else ln.split(":", 1)[-1].strip())
+    return out
+
+
 def card() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -90,6 +110,29 @@ def time_ms(fn, n: int = 100, warmup: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 100) -> float:
+    """Device time of one call without the host's launch work: ``n`` calls
+    captured in one CUDA graph, the replay timed between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -178,11 +221,12 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     def rounds_of(args):
         n = []
 
-        def counting_fill(*a):
+        def counting_round(*a):
             n.append(1)
-            return maxmin.fill_stats_plain(*a)
+            return maxmin.fill_round_plain(*a)
 
-        out = maxmin.progressive_filling(*args, counting_fill)
+        out = maxmin.progressive_filling(*args, counting_round,
+                                         plan_fn=maxmin.fill_plan_plain)
         return out, len(n)
 
     # ---- maxmin_solve: random stress (64 rounds) and the captured pass ----
@@ -219,15 +263,20 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
         ops=n_rounds * (4 * n_live + 8 * S + 6 * C))
 
     # ---- fill_stats: random at both shapes, and the captured first round
-    # of the above-gate cell's busiest pass --------------------------------
+    # of the above-gate cell's busiest pass; the public call (plan from
+    # live | unfrozen, then one round) and a round on the main path's plan
+    # (from live) must both equal the CPU plain version bit for bit ------
     def round0(solve):
         prov, cons, _, live, perf = solve
         r = torch.zeros(prov.shape, dtype=torch.float32, device=prov.device)
         return (prov, cons, r, live, live, perf)
 
     fcases = {}
-    for label, (c, s, seed) in (("random_main", (C, S, 1)),
-                                ("random_above_gate", (9692, 14194, 2))):
+    for label, (c, s, seed) in (
+            ("random_main", (C, S, 1)),
+            ("random_above_gate", (9692, 14194, 2)),
+            # above MAX_PLAN_SMEM_S: the plan's counts in global scratch
+            ("random_large_s", (20000, maxmin.MAX_PLAN_SMEM_S + 5000, 3))):
         (hp, hc, _, hl, hperf, hr, hu), dv2 = flow_inputs(c, s, seed, dev)
         fcases[label] = ((hp, hc, hr, hl, hu, hperf),
                          (dv2[0], dv2[1], dv2[5], dv2[3], dv2[6], dv2[4]))
@@ -237,22 +286,44 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     for label, (host, dargs) in fcases.items():
         dp, dc = maxmin.fill_stats(*dargs)
         dp2, dc2 = maxmin.fill_stats(*dargs)
+        prov, cons, r, live, unfrozen, perf = dargs
+        plan = maxmin.fill_plan(prov, cons, live, None, perf.shape[0])
+        rp, rc = maxmin.fill_round(plan, r, live, unfrozen & live, perf)
         torch.cuda.synchronize()
         wp, wc = maxmin.fill_stats_plain(*host)
+        hp, hc = maxmin.fill_stats_plain(*host[:4], host[4] & host[3],
+                                         host[5])
         check_close(f"fill_stats dp {label}", dp.cpu(), wp)
         check_close(f"fill_stats dc {label}", dc.cpu(), wc)
         assert torch.equal(dp, dp2) and torch.equal(dc, dc2), (
             f"fill_stats differs between two launches ({label})")
+        for got, want, what in ((dp, wp, "dp"), (dc, wc, "dc"),
+                                (rp, hp, "dp on a live plan"),
+                                (rc, hc, "dc on a live plan")):
+            assert torch.equal(got.cpu(), want), (
+                f"fill_stats {what} ({label}): not bit-equal to the CPU "
+                f"plain version")
         errs.append(max(max_abs_err(dp.cpu(), wp), max_abs_err(dc.cpu(), wc)))
-        checks[f"fill_stats_{label}_bit_equal_to_cpu_plain"] = bool(
-            torch.equal(dp.cpu(), wp) and torch.equal(dc.cpu(), wc))
+        checks[f"fill_stats_{label}_bit_equal_to_cpu_plain"] = True
     c, s = dcap[0].shape[0], dcap[5].shape[0]
+    # the main path's plan: built once per solve from live
+    plan = maxmin.fill_plan(dcap[0], dcap[1], dcap[3], None, s)
     records["fill_stats"] = dict(
         shape=f"C={c} S={s} (above-gate cell, busiest captured pass, "
-              f"round 1)",
+              f"round 1, on its plan)",
         max_abs_err=max(errs),
-        ms=time_ms(lambda: maxmin.fill_stats(*dcap)),
+        ms=time_ms(lambda: maxmin.fill_round(plan, *dcap[2:])),
+        plan_ms=time_ms(lambda: maxmin.fill_plan(dcap[0], dcap[1], dcap[3],
+                                                 None, s)),
+        public_ms=time_ms(lambda: maxmin.fill_stats(*dcap)),
+        # device time alone (the events above also hold the wrapper's host
+        # work, which is longer than these launch-bound kernels)
+        graph_ms=graph_ms(lambda: maxmin.fill_round(plan, *dcap[2:])),
+        plan_graph_ms=graph_ms(lambda: maxmin.fill_plan(
+            dcap[0], dcap[1], dcap[3], None, s)),
         plain_ms=time_ms(lambda: maxmin.fill_stats_plain(*dcap)),
+        longest_segment=plan.longest_segment(),
+        plan_flows=int(plan.off_p[-1]),
         bytes=14 * c + 12 * s, ops=4 * int(dcap[3].sum()) + 8 * s)
 
     # ---- masked_min: random, captured, and the edge cases ----------------
@@ -297,6 +368,12 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     return records, checks
 
 
+# the port's hand-written kernels, as the profiler names them
+OUR_KERNELS = ("maxmin_solve_kernel", "fill_plan_kernel", "fill_round_kernel",
+               "masked_min_kernel", "flash_mma_kernel", "flash_f32_kernel",
+               "linear_scan_kernel")
+
+
 def profiled(fn) -> tuple:
     """Run ``fn`` under torch.profiler; returns its result and a summary:
     wall, device busy and idle share, kernel launches, host reads, the top
@@ -321,8 +398,17 @@ def profiled(fn) -> tuple:
     top_dev = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total,
                      reverse=True)[:8]
+    ours = {}
+    for e in avg:
+        words = e.key.split("(")[0].split("<")[0].split()
+        if (e.device_type == DeviceType.CUDA and words
+                and words[-1] in OUR_KERNELS):
+            name = words[-1]
+            n, ms = ours.get(name, (0, 0.0))
+            ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
     return out, dict(
         wall_s=wall, device_busy_s=device_us / 1e6,
+        our_kernels_count_ms=ours,
         device_idle_share=1.0 - device_us / 1e6 / wall,
         kernel_launches=sum(n for k, n in calls.items()
                             if "LaunchKernel" in k),
@@ -334,22 +420,28 @@ def profiled(fn) -> tuple:
 
 
 def profile_phase(n_tasks: int) -> dict:
-    """One full-width run under torch.profiler: device busy and idle share,
-    kernel launches and host reads per pass, the top host-side ops."""
+    """A full-width run cut to ``n_tasks`` and the above-gate cell (its main
+    path's 100 tasks) under torch.profiler: device busy and idle share,
+    device time of each hand-written kernel, kernel launches and host reads
+    per pass, the top host-side ops."""
     from repro_torch.core import engine
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
-    trace = filter_fitting(gwa_like_trace("das2", n_tasks, seed=7), 64.0)
-    spec, params = engine.make_cloud(n_pm=500, n_vm=4096, pm_cores=64.0,
-                                     pm_sched="ondemand",
-                                     max_events=4_000_000)
-    (res, _), prof = profiled(lambda: run(spec, trace, params, "cuda"))
-    events = int(res.n_events)
-    rec = dict(tasks=int(trace.n), events=events, **prof,
-               kernel_launches_per_pass=prof["kernel_launches"] / events,
-               host_reads_per_pass=prof["host_reads"] / events)
-    print(json.dumps({"profile_full_width": rec}))
-    return rec
+    out = {}
+    for name, n_pm, n_vm, tasks in (("full_width", 500, 4096, n_tasks),
+                                    ("above_gate", 1500, 8192, 100)):
+        trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
+        spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
+                                         pm_sched="ondemand",
+                                         max_events=4_000_000)
+        (res, _), prof = profiled(lambda: run(spec, trace, params, "cuda"))
+        events = int(res.n_events)
+        out[name] = dict(tasks=int(trace.n), events=events, **prof,
+                         kernel_launches_per_pass=prof["kernel_launches"]
+                         / events,
+                         host_reads_per_pass=prof["host_reads"] / events)
+        print(json.dumps({f"profile_{name}": out[name]}))
+    return out
 
 
 def run(spec, trace, params, device):
@@ -382,7 +474,8 @@ def main_path(n_tasks: int) -> dict:
             max_events=4_000_000)
         kernels.reset_launch_counts()
         res, wall = run(spec, trace, params, "cuda")
-        launches = kernels.launch_counts()
+        launches = dict(kernels.launch_counts(),
+                        **kernels.sub_launch_counts())
         events = int(res.n_events)
         ts = res.state.task_state.cpu().numpy()
         rd = {k: float(v.sum()) for k, v in res.readings(spec).items()}
@@ -402,9 +495,12 @@ def main_path(n_tasks: int) -> dict:
             f"{events} advance passes")
         if name == "full_width":
             assert launches["maxmin_solve"] == events, launches
+            assert launches["fill_plan"] == 0, launches
         else:
             assert launches["maxmin_solve"] == 0, launches
             assert launches["fill_stats"] >= events, launches
+            # one plan per solve that runs a round, at most one per pass
+            assert 0 < launches["fill_plan"] <= events, launches
         out[name] = rec
     return out
 
@@ -526,35 +622,51 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
 
     records, checks = {}, {}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_mma = 0
     for i, (B, Tq, Tk, Hq, Hkv, D, kw) in enumerate(FLASH_CASES):
         for dtype in errs:
+            var = kattn.variant(dtype, D)
             q, k, v = _randn(((B, Tq, Hq, D), (B, Tk, Hkv, D),
                               (B, Tk, Hkv, D)), dtype, i, dev)
+            mma0 = kattn.flash_attention.mma_launches
             got = kattn.flash_attention(q, k, v, **kw).float().cpu()
+            went_mma = kattn.flash_attention.mma_launches - mma0
+            assert went_mma == (dtype == torch.bfloat16) == (
+                var.name == "mma"), ("flash variant", i, dtype, went_mma)
+            n_mma += went_mma
             want = kattn.flash_attention_plain(q, k, v, **kw).float().cpu()
             rtol, atol = FLASH_TOL[dtype]
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
                                        atol=atol,
                                        err_msg=f"flash {dtype} {i} {kw}")
             errs[dtype] = max(errs[dtype], max_abs_err(got, want))
-        vis = torch.empty(B * Hq * -(-Tq // kattn.BQ), dtype=torch.int32,
-                          device=dev)
-        kattn.flash_attention(q, k, v, visited=vis, **kw)
-        plan = B * Hq * kattn.visited_tiles(Tq, Tk, **{
-            o: kw[o] for o in ("causal", "window", "prefix_len", "q_offset")
-            if o in kw})
-        assert int(vis.sum()) == plan, ("visited tiles", i, int(vis.sum()),
-                                        plan)
+            # each variant's tile skip against the host's count
+            vis = torch.empty(B * Hq * -(-Tq // var.bq), dtype=torch.int32,
+                              device=dev)
+            kattn.flash_attention(q, k, v, visited=vis, **kw)
+            plan = B * Hq * kattn.visited_tiles(Tq, Tk, bq=var.bq, bk=var.bk,
+                                                **{o: kw[o] for o in (
+                                                    "causal", "window",
+                                                    "prefix_len", "q_offset")
+                                                   if o in kw})
+            assert int(vis.sum()) == plan, ("visited tiles", i, str(dtype),
+                                            int(vis.sum()), plan)
+    assert n_mma == len(FLASH_CASES)
     checks["flash_cases"] = 2 * len(FLASH_CASES)
+    checks["flash_cases_bf16_on_tensor_cores"] = n_mma
     checks["flash_cases_max_abs_err"] = {str(k): v for k, v in errs.items()}
     checks["flash_tol_rtol_atol"] = {str(k): v for k, v in FLASH_TOL.items()}
 
     # the Jamba forward's attention: B=1, T=4096, 32/8 heads, D=128, bf16
     B, T, Hq, Hkv, D = 1, 4096, 32, 8, 128
+    var = kattn.variant(torch.bfloat16, D)
     q, k, v = _randn(((B, T, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)),
                      torch.bfloat16, 99, dev)
+    mma0 = kattn.flash_attention.mma_launches
     got = kattn.flash_attention(q, k, v)
     again = kattn.flash_attention(q, k, v)
+    assert kattn.flash_attention.mma_launches - mma0 == 2, (
+        "full-width flash_attention did not run on the tensor cores")
     want = kattn.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(got, again), "flash_attention differs between launches"
@@ -565,11 +677,14 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
                                atol=atol, err_msg="flash full width")
     checks["flash_full_width_max_abs_err"] = err_full
     del want
-    vis = torch.empty(B * Hq * (T // kattn.BQ), dtype=torch.int32,
+    vis = torch.empty(B * Hq * (T // var.bq), dtype=torch.int32,
                       device=dev)
     kattn.flash_attention(q, k, v, visited=vis)
+    assert int(vis.sum()) == B * Hq * kattn.visited_tiles(
+        T, T, bq=var.bq, bk=var.bk), "full-width visited tiles"
     checks["flash_full_width_tiles_visited_share"] = int(vis.sum()) / (
-        B * Hq * (T // kattn.BQ) * (T // kattn.BK))
+        B * Hq * (T // var.bq) * (T // var.bk))
+    checks["flash_full_width_bit_identical"] = True
     # the library yardstick: PyTorch's fused attention, KV heads expanded
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q.transpose(1, 2).contiguous()
@@ -582,8 +697,10 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
     n_bytes = q.nbytes + k.nbytes + v.nbytes + got.nbytes
     records["flash_attention"] = dict(
         shape=f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
+        variant=f"{var.name} (BQ={var.bq}, BK={var.bk})",
         max_abs_err=max(err_full, *errs.values()),
         max_abs_err_full_width=err_full,
+        max_abs_err_vs_sdpa=checks["flash_full_width_vs_sdpa_max_abs_err"],
         ms=time_ms(lambda: kattn.flash_attention(q, k, v), n=30, warmup=3),
         plain_ms=time_ms(lambda: kattn.flash_attention_plain(q, k, v),
                          n=10, warmup=2),
@@ -646,7 +763,8 @@ def _forward_record(cfg, params, tokens) -> tuple:
     logits, _ = lm.forward(cfg, params, {"tokens": tokens})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return logits, wall, kernels.launch_counts()
+    return logits, wall, dict(kernels.launch_counts(),
+                              **kernels.sub_launch_counts())
 
 
 def _serve(cfg, params, prompts, max_new, max_len, device, timers=None):
@@ -713,6 +831,7 @@ def lm_phase(dev) -> dict:
     n_attn = sum(ls.kind == "attn" for ls in lm.layer_kinds(cfg))
     n_mamba = cfg.n_layers - n_attn
     assert launches["flash_attention"] == n_attn == 2, launches
+    assert launches["flash_attention_mma"] == 2, launches   # bf16 variant
     assert launches["linear_scan"] == n_mamba * T // cfg.scan_chunk == 224, (
         launches)
     out["lm_forward_full_width"] = rec
@@ -768,7 +887,8 @@ def lm_phase(dev) -> dict:
                launches_kernels=launch_k, launches_plain=launch_p,
                serve_tokens_equal=tok_k == tok_p)
     print(json.dumps({"lm_kernel_vs_plain": rec}))
-    assert launch_k["flash_attention"] == 1, launch_k
+    assert launch_k["flash_attention"] == launch_k["flash_attention_mma"] == 1, (
+        launch_k)
     assert launch_k["linear_scan"] == 7 * 1024 // cfg.scan_chunk, launch_k
     assert launch_p["flash_attention"] == launch_p["linear_scan"] == 0, (
         launch_p)
@@ -798,6 +918,7 @@ def lm_phase(dev) -> dict:
                serve_tokens_equal=tok_c == tok_h)
     print(json.dumps({"lm_cross_check": rec}))
     assert launches["flash_attention"] == 1 and launches["linear_scan"] > 0
+    assert launches["flash_attention_mma"] == 0, launches   # f32 variant
     assert tok_c == tok_h, "lm_cross_check: card and CPU tokens differ"
     out["lm_cross_check"] = rec
     out["lm_model"] = model
@@ -823,11 +944,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = _build.build_all()
+    ptxas = {n: ptxas_report(_build.build_log(n)) for n in _build.SOURCES}
     record["build"] = dict(wall_s=time.perf_counter() - t0, per_source=build_s,
-                           ptxas={n: [ln for ln in _build.build_log(n)
-                                      .splitlines() if "ptxas info" in ln]
-                                  for n in _build.SOURCES})
+                           ptxas=ptxas)
     print(json.dumps({"build": record["build"]}))
+    mma128 = [v for k, v in ptxas["attention"].items()
+              if k.startswith("_Z16flash_mma_kernelILi128E")]
+    assert mma128 and " 0 bytes spill stores" in mma128[0], (
+        "the bf16 flash kernel spills at D = 128", mma128)
 
     kern, checks = kernel_phase(dev, n_capture=300)
     lm_kern, lm_checks = lm_kernel_phase(dev)
@@ -865,7 +989,10 @@ def main() -> int:
             launches=record["main_path"][cell]["launches"][name],
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=k.get("library_ms"),
-            shape=k["shape"], main_path_cell=cell))
+            shape=k["shape"], main_path_cell=cell,
+            **{x: k[x] for x in ("variant", "plan_ms", "public_ms",
+                                 "graph_ms", "plan_graph_ms",
+                                 "longest_segment") if x in k}))
     record["kernels"] = rows
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

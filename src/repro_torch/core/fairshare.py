@@ -7,7 +7,9 @@ port of ``repro.core.fairshare``.
 ``maxmin_rates`` is the simulation hot spot.  Below the kernel's size gate
 (:func:`repro_torch.kernels.maxmin.solve_fits`) it is one
 :func:`~repro_torch.kernels.maxmin.maxmin_solve` call; above it the rounds
-run from the host through :func:`~repro_torch.kernels.maxmin.fill_stats`.
+run from the host: one :func:`~repro_torch.kernels.maxmin.fill_plan` per
+call, then one :func:`~repro_torch.kernels.maxmin.fill_round` per round
+(looked up at each call, so a test can count the rounds by replacing it).
 The reference's ``backend`` switch has no counterpart: the tensors' device
 picks the kernel (CUDA) or its plain version (CPU).
 """
@@ -49,7 +51,7 @@ def maxmin_rates(provider, consumer, p_l, live, perf, *,
         return kmaxmin.maxmin_solve(provider, consumer, p_l, live, perf,
                                     max_iters=max_iters, rel_eps=rel_eps)
     return kmaxmin.progressive_filling(provider, consumer, p_l, live, perf,
-                                       kmaxmin.fill_stats,
+                                       kmaxmin.fill_round,
                                        max_iters=max_iters, rel_eps=rel_eps)
 
 

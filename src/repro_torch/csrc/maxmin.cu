@@ -1,6 +1,7 @@
 // Max-min fair-share kernels for Hopper (sm_90a): the whole progressive
-// filling in one thread block (maxmin_solve), and one round's per-spreader
-// headroom over a grid of blocks (fill_stats).
+// filling in one thread block (maxmin_solve), and, above its size gate, the
+// round-wise path: a plan of the flows built once per solve (fill_plan) and
+// one round's per-spreader headroom walked over it (fill_round).
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   repro/kernels/maxmin.py  maxmin_solve (_solve_kernel)  and
@@ -12,11 +13,25 @@
 // JAX reference's segment_sum: the rates are bit-identical to the plain
 // version and identical from run to run.  No float atomics anywhere.
 //
-// What bounds them on an H100: at the engine's sizes (C ~ 5k flows, S ~ 6k
-// spreaders) the work is a few hundred kilobytes per call, so one launch
-// (a few microseconds) and the dependent rounds inside the single block
-// bound maxmin_solve; fill_stats is bound by its launch and its O(S*C)
-// shared-memory scan.  Neither touches the tensor cores.
+// Both paths group the flows by segment the same way (block_inclusive_scan
+// over the counts, then warp_stable_fill): a stable CSR per side, provider
+// and consumer, each segment listing its flows in ascending index.
+//
+// The plan keeps only the flows that can contribute, live | unfrozen when
+// it is built, and that drop is exact: a sum starts from +0.0, and from
+// that start an accumulator is never -0.0; a flow that is neither live nor
+// unfrozen adds +0.0 to the committed sum and 0 to the count; and adding
+// +-0.0 to a value that is not -0.0 leaves it unchanged.  Within one solve
+// provider, consumer and live do not change and unfrozen stays a subset of
+// live, so one plan from live serves every round.
+//
+// What bounds them on an H100: at the engine's sizes (C ~ 5-10k flows,
+// S ~ 6-14k spreaders) the work is a few hundred kilobytes per call, so one
+// launch (a few microseconds) and the dependent rounds inside the single
+// block bound maxmin_solve.  fill_round is bound by its launch and by the
+// serial walk of the longest segment (its gathers are issued ahead of the
+// adds, so only the f32 adds are serial); fill_plan by its one block's
+// count, scan and the warps' stable fill.  None touches the tensor cores.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (no --use_fast_math: the freeze test and the headroom division must round
@@ -97,18 +112,22 @@ __device__ void block_inclusive_scan(int* a, int n, int* red) {
     __syncthreads();
 }
 
-// Stable grouping of the live flows by segment id, done by one warp: flows
+// Stable grouping by segment id of flows base .. base + n - 1, done by one
+// warp: seg_at(i) is flow base + i's segment, or -1 to leave it out.  Flows
 // are taken 32 at a time in index order, lanes that share a segment are
-// ranked by lane, so every segment lists its flows in ascending index.
-__device__ void warp_stable_fill(const int* __restrict__ seg_of,
-                                 const uint8_t* __restrict__ live, int C,
-                                 int* cursor, int* csr) {
+// ranked by lane, so every segment lists its flows in ascending index.  The
+// next 32 flows' ids are read while this batch is placed, so only the
+// cursor updates are serial.
+template <class SegAt>
+__device__ void warp_stable_fill(SegAt seg_at, int n, int base, int* cursor,
+                                 int* csr) {
     int lane = threadIdx.x & 31;
     unsigned lt = (1u << lane) - 1u;
-    for (int base = 0; base < C; base += 32) {
-        int j = base + lane;
-        bool valid = (j < C) && live[j];
-        int seg = valid ? seg_of[j] : -1;
+    int seg = lane < n ? seg_at(lane) : -1;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+        int in = i0 + 32 + lane;
+        int seg_next = in < n ? seg_at(in) : -1;
+        bool valid = seg >= 0;
         unsigned group = __match_any_sync(FULL_MASK, seg);
         int leader = __ffs(group) - 1;
         int start = 0;
@@ -117,8 +136,9 @@ __device__ void warp_stable_fill(const int* __restrict__ seg_of,
             cursor[seg] = start + __popc(group);
         }
         start = __shfl_sync(FULL_MASK, start, leader);
-        if (valid) csr[start + __popc(group & lt)] = j;
+        if (valid) csr[start + __popc(group & lt)] = base + i0 + lane;
         __syncwarp();
+        seg = seg_next;
     }
 }
 
@@ -170,8 +190,12 @@ maxmin_solve_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
     int* curc = reinterpret_cast<int*>(dc);
     for (int s = tid; s < S; s += nt) { curp[s] = offp[s]; curc[s] = offc[s]; }
     __syncthreads();
-    if (tid < 32) warp_stable_fill(prov, live, C, curp, csr_p);
-    else if (tid < 64) warp_stable_fill(cons, live, C, curc, csr_c);
+    if (tid < 32)
+        warp_stable_fill([=](int j) { return live[j] ? prov[j] : -1; }, C, 0,
+                         curp, csr_p);
+    else if (tid < 64)
+        warp_stable_fill([=](int j) { return live[j] ? cons[j] : -1; }, C, 0,
+                         curc, csr_c);
     __syncthreads();
     int n_unfrozen = block_sum_int(n_live, red_i);
 
@@ -227,48 +251,128 @@ maxmin_solve_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
     }
 }
 
-// One round's per-spreader headroom: one thread per spreader scans every
-// flow (staged through shared memory a tile at a time) in index order.
-#define FILL_THREADS 256
-#define FILL_TILE 1024
+// ---- the round-wise path --------------------------------------------------
 
-__global__ void __launch_bounds__(FILL_THREADS)
-fill_stats_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
-                  const float* __restrict__ r, const uint8_t* __restrict__ live,
+#define PLAN_THREADS 1024
+#define PLAN_CHUNK 4096     // flows staged in shared memory per fill step
+#define ROUND_THREADS 256
+
+// Dynamic shared memory of one plan: the flows' staged segment ids, two
+// [PLAN_CHUNK] vectors, and, unless they live in global scratch, the two
+// count / offset / cursor vectors [S+1].
+static size_t fill_plan_smem_bytes(int S, int cnt_in_smem) {
+    return (size_t)2 * PLAN_CHUNK * sizeof(int)
+           + (cnt_in_smem ? (size_t)2 * (S + 1) * sizeof(int) : 0);
+}
+
+// The plan: a stable CSR of the flows with live | unfrozen (unfrozen may be
+// NULL), by provider (offp [S+1], csrp) and by consumer (offc, csrc).  One
+// block: integer counts by atomics, a block scan into offsets, then one warp
+// per side fills its CSR from segment ids that the whole block stages in
+// shared memory, PLAN_CHUNK flows at a time (the warps' reads then wait on
+// no global load).  The counts are 2 (S+1) ints of shared memory when they
+// fit, else global scratch.
+__global__ void __launch_bounds__(PLAN_THREADS)
+fill_plan_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
+                 const uint8_t* __restrict__ live,
+                 const uint8_t* __restrict__ unfrozen,
+                 int* __restrict__ offp, int* __restrict__ csrp,
+                 int* __restrict__ offc, int* __restrict__ csrc,
+                 int* scratch, int C, int S) {
+    extern __shared__ int plan_smem[];
+    __shared__ int red_i[32];
+    int* stage_p = plan_smem;                  // [PLAN_CHUNK]
+    int* stage_c = stage_p + PLAN_CHUNK;       // [PLAN_CHUNK]
+    int* cntp = scratch ? scratch : stage_c + PLAN_CHUNK;
+    int* cntc = cntp + S + 1;
+    const int tid = threadIdx.x, nt = blockDim.x;
+    auto keep = [live, unfrozen](int j) {
+        return live[j] != 0 || (unfrozen && unfrozen[j] != 0);
+    };
+    for (int s = tid; s <= S; s += nt) { cntp[s] = 0; cntc[s] = 0; }
+    __syncthreads();
+    for (int j = tid; j < C; j += nt)
+        if (keep(j)) {
+            atomicAdd(&cntp[prov[j] + 1], 1);   // integer counts only
+            atomicAdd(&cntc[cons[j] + 1], 1);
+        }
+    __syncthreads();
+    block_inclusive_scan(cntp, S + 1, red_i);
+    block_inclusive_scan(cntc, S + 1, red_i);
+    for (int s = tid; s <= S; s += nt) { offp[s] = cntp[s]; offc[s] = cntc[s]; }
+    __syncthreads();
+    // cnt[s] is now segment s's start: the fill's cursor
+    for (int base = 0; base < C; base += PLAN_CHUNK) {
+        const int n = min(PLAN_CHUNK, C - base);
+        for (int i = tid; i < n; i += nt) {
+            const int j = base + i;
+            const bool k = keep(j);
+            stage_p[i] = k ? prov[j] : -1;
+            stage_c[i] = k ? cons[j] : -1;
+        }
+        __syncthreads();
+        if (tid < 32)
+            warp_stable_fill([=](int i) { return stage_p[i]; }, n, base,
+                             cntp, csrp);
+        else if (tid < 64)
+            warp_stable_fill([=](int i) { return stage_c[i]; }, n, base,
+                             cntc, csrc);
+        __syncthreads();
+    }
+}
+
+// Committed rate and unfrozen count of one segment, added in plan order
+// (ascending flow index) from +0.0.  Indices, then flags and rates, are
+// loaded four ahead of the adds, so only the adds form a chain.
+__device__ __forceinline__ float segment_headroom(
+        const int* __restrict__ off, const int* __restrict__ csr,
+        const float* __restrict__ r, const uint8_t* __restrict__ live,
+        const uint8_t* __restrict__ unfrozen, float perf, int s) {
+    const int e = off[s + 1];
+    int k = off[s];
+    float com = 0.0f;
+    int cnt = 0;
+    for (; k + 4 <= e; k += 4) {
+        int j[4];
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) j[u] = csr[k + u];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            float rv = r[j[u]];
+            v[u] = live[j[u]] ? rv : 0.0f;
+            cnt += unfrozen[j[u]];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) com = __fadd_rn(com, v[u]);
+    }
+    for (; k < e; ++k) {
+        int j = csr[k];
+        float rv = r[j];
+        com = __fadd_rn(com, live[j] ? rv : 0.0f);
+        cnt += unfrozen[j];
+    }
+    // the count is an integer below 2**24: its f32 sum is exact
+    const float c = (float)cnt;
+    return cnt > 0 ? __fdiv_rn(fmaxf(__fsub_rn(perf, com), 0.0f), fmaxf(c, 1.0f))
+                   : BIG_F;
+}
+
+// One round's per-spreader headroom over a plan: one thread per spreader
+// walks its provider and its consumer segment.
+__global__ void __launch_bounds__(ROUND_THREADS)
+fill_round_kernel(const int* __restrict__ offp, const int* __restrict__ csrp,
+                  const int* __restrict__ offc, const int* __restrict__ csrc,
+                  const float* __restrict__ r,
+                  const uint8_t* __restrict__ live,
                   const uint8_t* __restrict__ unfrozen,
                   const float* __restrict__ perf,
-                  float* __restrict__ dp, float* __restrict__ dc, int C, int S) {
-    __shared__ int tp[FILL_TILE];
-    __shared__ int tc[FILL_TILE];
-    __shared__ float tr[FILL_TILE];
-    __shared__ float tu[FILL_TILE];
+                  float* __restrict__ dp, float* __restrict__ dc, int S) {
     const int s = blockIdx.x * blockDim.x + threadIdx.x;
-    float com_p = 0.0f, cnt_p = 0.0f, com_c = 0.0f, cnt_c = 0.0f;
-    for (int base = 0; base < C; base += FILL_TILE) {
-        int n = min(FILL_TILE, C - base);
-        for (int k = threadIdx.x; k < n; k += blockDim.x) {
-            int j = base + k;
-            tp[k] = prov[j];
-            tc[k] = cons[j];
-            tr[k] = live[j] ? r[j] : 0.0f;
-            tu[k] = unfrozen[j] ? 1.0f : 0.0f;
-        }
-        __syncthreads();
-        if (s < S) {
-            for (int k = 0; k < n; ++k) {
-                if (tp[k] == s) { com_p = __fadd_rn(com_p, tr[k]); cnt_p = __fadd_rn(cnt_p, tu[k]); }
-                if (tc[k] == s) { com_c = __fadd_rn(com_c, tr[k]); cnt_c = __fadd_rn(cnt_c, tu[k]); }
-            }
-        }
-        __syncthreads();
-    }
-    if (s < S) {
-        float pf = perf[s];
-        dp[s] = cnt_p > 0.0f
-            ? __fdiv_rn(fmaxf(__fsub_rn(pf, com_p), 0.0f), fmaxf(cnt_p, 1.0f)) : BIG_F;
-        dc[s] = cnt_c > 0.0f
-            ? __fdiv_rn(fmaxf(__fsub_rn(pf, com_c), 0.0f), fmaxf(cnt_c, 1.0f)) : BIG_F;
-    }
+    if (s >= S) return;
+    const float pf = perf[s];
+    dp[s] = segment_headroom(offp, csrp, r, live, unfrozen, pf, s);
+    dc[s] = segment_headroom(offc, csrc, r, live, unfrozen, pf, s);
 }
 
 extern "C" int maxmin_solve_launch(const int* prov, const int* cons,
@@ -288,13 +392,29 @@ extern "C" int maxmin_solve_launch(const int* prov, const int* cons,
     return (int)cudaGetLastError();
 }
 
-extern "C" int fill_stats_launch(const int* prov, const int* cons,
+extern "C" int fill_plan_launch(const int* prov, const int* cons,
+                                const uint8_t* live, const uint8_t* unfrozen,
+                                int* offp, int* csrp, int* offc, int* csrc,
+                                int* scratch, int C, int S, void* stream) {
+    size_t smem = fill_plan_smem_bytes(S, scratch == nullptr);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            fill_plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    fill_plan_kernel<<<1, PLAN_THREADS, smem, (cudaStream_t)stream>>>(
+        prov, cons, live, unfrozen, offp, csrp, offc, csrc, scratch, C, S);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fill_round_launch(const int* offp, const int* csrp,
+                                 const int* offc, const int* csrc,
                                  const float* r, const uint8_t* live,
                                  const uint8_t* unfrozen, const float* perf,
-                                 float* dp, float* dc, int C, int S,
-                                 void* stream) {
-    int blocks = (S + FILL_THREADS - 1) / FILL_THREADS;
-    fill_stats_kernel<<<blocks, FILL_THREADS, 0, (cudaStream_t)stream>>>(
-        prov, cons, r, live, unfrozen, perf, dp, dc, C, S);
+                                 float* dp, float* dc, int S, void* stream) {
+    int blocks = (S + ROUND_THREADS - 1) / ROUND_THREADS;
+    fill_round_kernel<<<blocks, ROUND_THREADS, 0, (cudaStream_t)stream>>>(
+        offp, csrp, offc, csrc, r, live, unfrozen, perf, dp, dc, S);
     return (int)cudaGetLastError();
 }

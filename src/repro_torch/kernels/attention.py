@@ -1,9 +1,11 @@
 """Block-wise (flash) attention (source: ``csrc/attention.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/attention.py``
-``flash_attention``.  A CUDA tensor launches the hand-written kernel (or the
-wrapper raises); a CPU tensor runs :func:`flash_attention_plain`, the
-materialised softmax of ``repro/kernels/ref.py`` ``attention_ref``.
+``flash_attention``.  A CUDA tensor launches a hand-written kernel (or the
+wrapper raises): bf16 the tensor-core kernel, f32 the CUDA-core one, each
+with its own tile shape (:func:`variant`).  A CPU tensor runs
+:func:`flash_attention_plain`, the materialised softmax of
+``repro/kernels/ref.py`` ``attention_ref``.
 
 Masks follow that oracle, which ``models/attention._mask`` matches on every
 case a model reaches.  The Pallas kernel departs from it in two corners
@@ -15,6 +17,7 @@ prefix keys, and the wrapper refuses ``causal=False`` with ``window > 0``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,8 +25,30 @@ from . import _build
 from .maxmin import _route, _stream
 
 NEG = -1e30
-BQ, BK = 64, 32          # the kernel's q and KV tile heights
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BQ, BK = 64, 32          # the f32 (CUDA-core) kernel's q and KV tile heights
+
+
+class Variant(NamedTuple):
+    """One kernel of ``csrc/attention.cu`` and its tile shape."""
+    name: str            # "mma" (bf16, tensor cores) or "f32" (CUDA cores)
+    bq: int              # q rows per block
+    bk: int              # keys per KV tile
+
+
+def variant(dtype, D: int) -> Variant:
+    """The kernel that takes inputs of ``dtype`` with head dim ``D``: bf16 on
+    the tensor cores (D padded in shared memory to 16, 32, 64, 128 or 256),
+    f32 on the CUDA cores.  Both sweep 32-key tiles for 64-row q tiles (the
+    bf16 kernel's shape was measured best of 64 or 128 rows by 32 or 64
+    keys).  Raises for D outside [1, 256] and for any other dtype."""
+    if not 1 <= D <= 256:
+        raise ValueError(f"flash_attention: needs 1 <= D <= 256, got D={D}")
+    if dtype == torch.bfloat16:
+        return Variant("mma", 64, 32)
+    if dtype == torch.float32:
+        return Variant("f32", BQ, BK)
+    raise TypeError(f"flash_attention: no kernel for dtype {dtype} "
+                    f"(f32 or bf16)")
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -54,15 +79,16 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def visited_tiles(Tq, Tk, *, causal=True, window=0, prefix_len=0,
-                  q_offset=0) -> int:
-    """KV tiles one (batch, head) visits: the kernel's skip rule, counted on
-    the host (a tile is visited iff some key in it is visible to some row of
-    the q tile)."""
+                  q_offset=0, bq=BQ, bk=BK) -> int:
+    """KV tiles one (batch, head) visits with ``bq`` x ``bk`` tiles (a
+    variant's ``bq, bk``): the kernels' skip rule, counted on the host (a
+    tile is visited iff some key in it is visible to some row of the q tile;
+    a tile that holds prefix keys is always visited)."""
     n = 0
-    for q0 in range(0, Tq, BQ):
-        qp0, qp1 = q_offset + q0, q_offset + min(q0 + BQ, Tq) - 1
-        for k0 in range(0, Tk, BK):
-            k_last = min(k0 + BK, Tk) - 1
+    for q0 in range(0, Tq, bq):
+        qp0, qp1 = q_offset + q0, q_offset + min(q0 + bq, Tq) - 1
+        for k0 in range(0, Tk, bk):
+            k_last = min(k0 + bk, Tk) - 1
             n += (not causal or (prefix_len > 0 and k0 < prefix_len)
                   or (k0 <= qp1 and (window <= 0 or k_last > qp0 - window)))
     return n
@@ -70,12 +96,22 @@ def visited_tiles(Tq, Tk, *, causal=True, window=0, prefix_len=0,
 
 def check_launch_limits(B: int, Tq: int, Tk: int, Hq: int, D: int, *,
                         window: int = 0, prefix_len: int = 0,
-                        q_offset: int = 0) -> None:
-    """The kernel's own shape limits: one grid row per (batch, q head), at
-    most 65535; D <= 256; positions (up to ``q_offset + Tq``) and the mask
-    sizes in int32.  Offsets are 64-bit inside, so the tensors' sizes are
-    not limited."""
-    if B * Hq > 65535 or D > 256 or Tk < 1 or Tq < 1:
+                        q_offset: int = 0, dtype=torch.float32) -> None:
+    """The shape limits of the kernel that takes ``dtype``.  The f32 kernel's
+    grid is (q tiles, B * Hq): at most 65535 rows of (batch, q head).  The
+    bf16 kernel's grid is (B * Hq, q tiles): at most 65535 q tiles of its
+    ``bq`` rows.  Both need 1 <= D <= 256, Tq, Tk >= 1, and positions (up to
+    ``q_offset + Tq``) and mask sizes in int32.  Offsets are 64-bit inside,
+    so the tensors' sizes are not limited."""
+    if dtype == torch.bfloat16:
+        bq = variant(dtype, D).bq if 1 <= D <= 256 else BQ
+        if (B * Hq >= 2 ** 31 or -(-Tq // bq) > 65535 or not 1 <= D <= 256
+                or Tk < 1 or Tq < 1):
+            raise ValueError(
+                f"flash_attention: needs ceil(Tq / {bq}) <= 65535, "
+                f"B * Hq < 2**31, D <= 256 and Tq, Tk >= 1, got B={B}, "
+                f"Hq={Hq}, D={D}, Tq={Tq}, Tk={Tk}")
+    elif B * Hq > 65535 or not 1 <= D <= 256 or Tk < 1 or Tq < 1:
         raise ValueError(f"flash_attention: needs B * Hq <= 65535, D <= 256 "
                          f"and Tq, Tk >= 1, got B={B}, Hq={Hq}, D={D}, "
                          f"Tq={Tq}, Tk={Tk}")
@@ -86,10 +122,12 @@ def check_launch_limits(B: int, Tq: int, Tk: int, Hq: int, D: int, *,
 def _lib():
     lib = _build.load("attention")
     if not getattr(lib, "_typed", False):
-        lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.flash_attention_launch.restype = ctypes.c_int
+        for fn in (lib.flash_attention_f32_launch,
+                   lib.flash_attention_bf16_launch):
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                           + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -113,8 +151,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     prefix_len=0, q_offset=0, scale=None, visited=None):
     """Attention of q [B,Tq,Hq,D] over k, v [B,Tk,Hkv,D] (KV head = q head
     // (Hq/Hkv)), output in q's dtype.  ``q_offset`` is the absolute position
-    of q[:, 0].  ``visited``, an int32 CUDA tensor of ``B*Hq*ceil(Tq/64)``
-    entries, receives each block's count of visited KV tiles."""
+    of q[:, 0].  On CUDA, bf16 inputs launch the tensor-core kernel and f32
+    inputs the CUDA-core one (:func:`variant`); both count in
+    ``flash_attention.launches``, the first also in ``.mma_launches``.
+    ``visited``, an int32 CUDA tensor of ``B*Hq*ceil(Tq/bq)`` entries (the
+    variant's ``bq``), receives each block's count of visited KV tiles."""
     _check(q, k, v, causal, window)
     if not _route(q, "flash_attention"):
         return flash_attention_plain(
@@ -122,16 +163,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
             prefix_len=prefix_len, q_offset=q_offset, scale=scale)
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share f32 or bf16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    var = variant(q.dtype, D)
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("flash_attention: inputs lie on different devices")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: inputs must be contiguous")
     check_launch_limits(B, Tq, Tk, Hq, D, window=window,
-                        prefix_len=prefix_len, q_offset=q_offset)
-    n_blocks = B * Hq * -(-Tq // BQ)
+                        prefix_len=prefix_len, q_offset=q_offset,
+                        dtype=q.dtype)
+    n_blocks = B * Hq * -(-Tq // var.bq)
     if visited is not None and (visited.dtype != torch.int32
                                 or visited.numel() != n_blocks
                                 or visited.device != q.device):
@@ -139,17 +182,22 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                          f"{n_blocks} entries on {q.device}")
     scale = float(D ** -0.5) if scale is None else float(scale)
     out = torch.empty_like(q)
-    err = _lib().flash_attention_launch(
+    lib = _lib()
+    launch = (lib.flash_attention_bf16_launch if var.name == "mma"
+              else lib.flash_attention_f32_launch)
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if visited is None else visited.data_ptr(), B, Tq, Tk, Hq, Hkv, D,
         scale, float(softcap), int(bool(causal)), int(window),
-        int(prefix_len), int(q_offset), _DTYPE_CODE[q.dtype],
-        _stream(q.device))
+        int(prefix_len), int(q_offset), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    if var.name == "mma":
+        flash_attention.mma_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.mma_launches = 0

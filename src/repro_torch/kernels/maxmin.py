@@ -1,5 +1,5 @@
 """Max-min fair-share kernels: the fused progressive-filling solve and the
-round-wise per-spreader headroom (source: ``csrc/maxmin.cu``).
+round-wise per-spreader headroom over a plan (source: ``csrc/maxmin.cu``).
 
 Replaces the Pallas TPU kernels ``repro/kernels/maxmin.py`` ``maxmin_solve``
 and ``fill_stats``.  Each wrapper takes the path its tensors' device names:
@@ -17,11 +17,17 @@ CSR offset vectors of all ``S`` spreaders in one block's shared memory,
 ``20 * S + 8`` bytes beside 256 static bytes, within the 227 KB a Hopper
 block may use: ``S <= MAX_SOLVE_S`` (11,609).  The flows stay in global
 memory (L2), so the flow count is not limited.  Above the gate the engine
-runs the rounds from the host through :func:`fill_stats`.
+runs the rounds from the host (:func:`progressive_filling`): one
+:func:`fill_plan` per solve, a stable CSR of the flows by provider and by
+consumer, then one :func:`fill_round` per round, which walks each
+spreader's two segments.  The public :func:`fill_stats` is the two in one
+call.  Dropping the flows outside the plan is exact (``csrc/maxmin.cu``
+says why), so every path equals ``ref.fill_stats_ref`` bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +46,27 @@ def solve_smem_bytes(n_spreaders: int) -> int:
 
 
 MAX_SOLVE_S = (SMEM_LIMIT - STATIC_SMEM - 8) // 20
+# the plan kernel stages 4096 flows' two segment ids (32 KB) in shared
+# memory, and keeps its two [S+1] count vectors there up to here, in global
+# scratch above
+PLAN_STAGE_BYTES = 2 * 4096 * 4
+MAX_PLAN_SMEM_S = (SMEM_LIMIT - STATIC_SMEM - PLAN_STAGE_BYTES) // 8 - 1
+
+
+class FillPlan(NamedTuple):
+    """Stable CSR of the flows that can contribute to a round: segment ``s``
+    of the provider side lists ``csr_p[off_p[s]:off_p[s+1]]`` in ascending
+    flow index (likewise the consumer side).  int32 tensors, ``off_*`` of
+    ``S + 1`` entries, ``csr_*`` of ``C`` (the tail past ``off_*[S]`` is
+    unused)."""
+    off_p: torch.Tensor
+    csr_p: torch.Tensor
+    off_c: torch.Tensor
+    csr_c: torch.Tensor
+
+    def longest_segment(self) -> int:
+        return int(max(torch.diff(self.off_p).max(),
+                       torch.diff(self.off_c).max()))
 
 
 def solve_fits(n_flows: int, n_spreaders: int) -> bool:
@@ -71,18 +98,72 @@ def fill_stats_plain(provider, consumer, r, live, unfrozen, perf):
     return dp, dc
 
 
-def progressive_filling(provider, consumer, p_l, live, perf, fill_stats_fn,
-                        *, max_iters: int = 64, rel_eps: float = 1e-5):
-    """The round recurrence of ``ref.maxmin_solve_ref`` driven from the host,
-    one ``fill_stats_fn`` call per round; the host reads ``unfrozen.any()``
+def fill_plan_plain(provider, consumer, live, unfrozen, n_spreaders: int
+                    ) -> FillPlan:
+    """The plan of the flows with ``live | unfrozen`` (``live`` alone when
+    ``unfrozen`` is None): a stable sort of their indices by segment."""
+    keep = live if unfrozen is None else live | unfrozen
+    idx = torch.nonzero(keep).flatten()
+    C = provider.shape[0]
+
+    def side(ids):
+        seg = ids[idx].long()
+        order = torch.argsort(seg, stable=True)
+        csr = torch.zeros((C,), dtype=torch.int32, device=ids.device)
+        csr[:idx.numel()] = idx[order].to(torch.int32)
+        counts = torch.bincount(seg, minlength=n_spreaders)
+        off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        return off.to(torch.int32), csr
+
+    (off_p, csr_p), (off_c, csr_c) = side(provider), side(consumer)
+    return FillPlan(off_p, csr_p, off_c, csr_c)
+
+
+def fill_round_plain(plan: FillPlan, r, live, unfrozen, perf):
+    """One round's ``(dp, dc)`` summed over the plan's segments in plan
+    order (``index_add_`` on the CPU adds serially, so each segment's terms
+    go in ascending flow index, as in :func:`fill_stats_plain`)."""
+    S = perf.shape[0]
+    rl = torch.where(live, r, 0.0)
+    uf = unfrozen.to(torch.float32)
+    seg_ids = torch.arange(S, device=perf.device)
+
+    def seg(off, csr, x):
+        n = torch.diff(off.long())
+        ids = torch.repeat_interleave(seg_ids, n)
+        j = csr[:ids.numel()].long()
+        return torch.zeros((S,), dtype=torch.float32,
+                           device=x.device).index_add_(0, ids, x[j])
+
+    out = []
+    for off, csr in ((plan.off_p, plan.csr_p), (plan.off_c, plan.csr_c)):
+        committed, cnt = seg(off, csr, rl), seg(off, csr, uf)
+        avail = torch.clamp_min(perf - committed, 0.0)
+        out.append(torch.where(cnt > 0, avail / torch.clamp_min(cnt, 1.0),
+                               BIG))
+    return tuple(out)
+
+
+def progressive_filling(provider, consumer, p_l, live, perf, round_fn, *,
+                        plan_fn=None, max_iters: int = 64,
+                        rel_eps: float = 1e-5):
+    """The round recurrence of ``ref.maxmin_solve_ref`` driven from the host:
+    one ``plan_fn(provider, consumer, live, None, S)`` (default
+    :func:`fill_plan`) before the first round, then one ``round_fn(plan, r,
+    live, unfrozen, perf)`` per round; the host reads ``unfrozen.any()``
     once per round."""
+    plan_fn = fill_plan if plan_fn is None else plan_fn
     prov, cons = provider.long(), consumer.long()
     r = torch.zeros(p_l.shape, dtype=torch.float32, device=p_l.device)
     unfrozen = live
+    plan = None
     for _ in range(max_iters):
         if not bool(unfrozen.any()):
             break
-        dp, dc = fill_stats_fn(provider, consumer, r, live, unfrozen, perf)
+        if plan is None:
+            # unfrozen stays a subset of live: one plan serves every round
+            plan = plan_fn(provider, consumer, live, None, perf.shape[0])
+        dp, dc = round_fn(plan, r, live, unfrozen, perf)
         df = torch.minimum(dp[prov], dc[cons])
         df = torch.minimum(df, torch.clamp_min(p_l - r, 0.0))
         df = torch.where(unfrozen, df, BIG)
@@ -98,8 +179,8 @@ def maxmin_solve_plain(provider, consumer, p_l, live, perf, *,
                        max_iters: int = 64, rel_eps: float = 1e-5):
     """Full progressive-filling solve (``ref.maxmin_solve_ref``)."""
     return progressive_filling(provider, consumer, p_l, live, perf,
-                               fill_stats_plain, max_iters=max_iters,
-                               rel_eps=rel_eps)
+                               fill_round_plain, plan_fn=fill_plan_plain,
+                               max_iters=max_iters, rel_eps=rel_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +197,10 @@ def _lib():
         lib.maxmin_solve_launch.argtypes = [_P] * 10 + [_I, _I, _I,
                                                         ctypes.c_float, _P]
         lib.maxmin_solve_launch.restype = _I
-        lib.fill_stats_launch.argtypes = [_P] * 8 + [_I, _I, _P]
-        lib.fill_stats_launch.restype = _I
+        lib.fill_plan_launch.argtypes = [_P] * 9 + [_I, _I, _P]
+        lib.fill_plan_launch.restype = _I
+        lib.fill_round_launch.argtypes = [_P] * 10 + [_I, _P]
+        lib.fill_round_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -194,29 +277,81 @@ def maxmin_solve(provider, consumer, p_l, live, perf, *,
 maxmin_solve.launches = 0
 
 
-def fill_stats(provider, consumer, r, live, unfrozen, perf):
-    """Per-spreader headroom ``(dp, dc)`` of one progressive-filling round."""
-    if not _route(provider, "fill_stats"):
-        return fill_stats_plain(provider, consumer, r, live, unfrozen, perf)
-    C, S = provider.shape[0], perf.shape[0]
+def fill_plan(provider, consumer, live, unfrozen, n_spreaders: int
+              ) -> FillPlan:
+    """The plan of the flows with ``live | unfrozen`` (``unfrozen`` may be
+    None), built on the card by one launch."""
+    if not _route(provider, "fill_plan"):
+        return fill_plan_plain(provider, consumer, live, unfrozen,
+                               n_spreaders)
+    C, S = provider.shape[0], n_spreaders
     dev = provider.device
-    _check("fill_stats", dev, C, S,
-           provider=(provider, torch.int32, C),
-           consumer=(consumer, torch.int32, C),
-           r=(r, torch.float32, C), live=(live, torch.bool, C),
-           unfrozen=(unfrozen, torch.bool, C),
-           perf=(perf, torch.float32, S))
+    masks = dict(live=(live, torch.bool, C))
+    if unfrozen is not None:
+        masks["unfrozen"] = (unfrozen, torch.bool, C)
+    _check("fill_plan", dev, C, S, provider=(provider, torch.int32, C),
+           consumer=(consumer, torch.int32, C), **masks)
+    i32 = dict(dtype=torch.int32, device=dev)
+    plan = FillPlan(torch.empty((S + 1,), **i32), torch.empty((C,), **i32),
+                    torch.empty((S + 1,), **i32), torch.empty((C,), **i32))
+    scratch = (None if S <= MAX_PLAN_SMEM_S
+               else torch.empty((2 * (S + 1),), **i32))
+    err = _lib().fill_plan_launch(
+        provider.data_ptr(), consumer.data_ptr(), live.data_ptr(),
+        0 if unfrozen is None else unfrozen.data_ptr(),
+        plan.off_p.data_ptr(), plan.csr_p.data_ptr(), plan.off_c.data_ptr(),
+        plan.csr_c.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+        C, S, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fill_plan: kernel launch failed with CUDA "
+                           f"error {err}")
+    fill_plan.launches += 1
+    return plan
+
+
+fill_plan.launches = 0
+
+
+def fill_round(plan: FillPlan, r, live, unfrozen, perf):
+    """Per-spreader headroom ``(dp, dc)`` of one round, walked over a plan
+    that holds every flow with ``live | unfrozen``.  Its launches count in
+    ``fill_stats.launches``: it is the kernel that replaces the TPU
+    ``fill_stats``."""
+    if not _route(r, "fill_round"):
+        return fill_round_plain(plan, r, live, unfrozen, perf)
+    C, S = r.shape[0], perf.shape[0]
+    dev = r.device
+    _check("fill_round", dev, C, S, r=(r, torch.float32, C),
+           live=(live, torch.bool, C), unfrozen=(unfrozen, torch.bool, C),
+           perf=(perf, torch.float32, S), off_p=(plan.off_p, torch.int32,
+                                                  S + 1),
+           off_c=(plan.off_c, torch.int32, S + 1),
+           csr_p=(plan.csr_p, torch.int32, C),
+           csr_c=(plan.csr_c, torch.int32, C))
     dp = torch.empty((S,), dtype=torch.float32, device=dev)
     dc = torch.empty((S,), dtype=torch.float32, device=dev)
-    err = _lib().fill_stats_launch(
-        provider.data_ptr(), consumer.data_ptr(), r.data_ptr(),
-        live.data_ptr(), unfrozen.data_ptr(), perf.data_ptr(),
-        dp.data_ptr(), dc.data_ptr(), C, S, _stream(dev))
+    err = _lib().fill_round_launch(
+        plan.off_p.data_ptr(), plan.csr_p.data_ptr(), plan.off_c.data_ptr(),
+        plan.csr_c.data_ptr(), r.data_ptr(), live.data_ptr(),
+        unfrozen.data_ptr(), perf.data_ptr(), dp.data_ptr(), dc.data_ptr(),
+        S, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"fill_stats: kernel launch failed with CUDA "
+        raise RuntimeError(f"fill_round: kernel launch failed with CUDA "
                            f"error {err}")
     fill_stats.launches += 1
     return dp, dc
+
+
+def fill_stats(provider, consumer, r, live, unfrozen, perf):
+    """Per-spreader headroom ``(dp, dc)`` of one progressive-filling round
+    (``ref.fill_stats_ref``, for any inputs).  On the card it builds its own
+    plan and walks it: two launches, one :func:`fill_plan` and one
+    :func:`fill_round`."""
+    if not _route(provider, "fill_stats"):
+        return fill_stats_plain(provider, consumer, r, live, unfrozen, perf)
+    S = perf.shape[0]
+    plan = fill_plan(provider, consumer, live, unfrozen, S)
+    return fill_round(plan, r, live, unfrozen, perf)
 
 
 fill_stats.launches = 0

@@ -133,7 +133,8 @@ def test_solve_gate_is_set_by_shared_memory():
 @pytest.mark.parametrize("above_gate", [False, True])
 def test_maxmin_rates_matches_reference(above_gate, monkeypatch):
     """The engine-facing maxmin_rates: one fused solve below the gate, the
-    round-wise fill_stats loop above it; both equal the reference's."""
+    round-wise loop (one plan, then fill_round per round) above it; both
+    equal the reference's."""
     C = 300
     S = maxmin.MAX_SOLVE_S + 64 if above_gate else 200
     rng = np.random.RandomState(7)
@@ -144,11 +145,11 @@ def test_maxmin_rates_matches_reference(above_gate, monkeypatch):
     perf = (rng.rand(S) * 8).astype(np.float32)
     rounds = []
 
-    def counting_fill_stats(*a):
+    def counting_fill_round(*a):
         rounds.append(1)
-        return maxmin.fill_stats_plain(*a)
+        return maxmin.fill_round_plain(*a)
 
-    monkeypatch.setattr(maxmin, "fill_stats", counting_fill_stats)
+    monkeypatch.setattr(maxmin, "fill_round", counting_fill_round)
     args = (provider, consumer, p_l, live, perf)
     got = tfair.maxmin_rates(*map(_t, args))
     want = jfair.maxmin_rates(*map(_j, args), backend="jnp")
