@@ -6,18 +6,30 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every kernel under src/repro_torch/csrc/, one nvcc per source,
-   all started together;
+   all started together; neither the bf16 flash kernel at D = 128 nor the
+   solve may spill;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, its edge cases, its run-to-run bit identity, and its
    time (CUDA events, median of 100 launches after warm-up) beside the
-   plain version's time and the bound of the work; fill_stats also as the
+   plain version's time and the bound of the work; maxmin_solve bit-equal
+   to the CPU plain version on random, captured and every case of
+   repro_torch.kernels.maxmin_cases, and so is the engine's round-wise
+   route on the same inputs; maxmin_solve also timed on four cases of more
+   than 32 live flows (general_cases); masked_min equal to its plain
+   version on views off a 16-byte boundary, on the grid path, and on two
+   grid-path calls in flight on two streams; for both, the device time
+   alone (a CUDA graph of 100 calls), the wrapper's host time (a host
+   clock over 1000 enqueues, median of 5) and the launch floor (an empty
+   kernel through the same ctypes path, timed all three ways); fill_stats
+   also as the
    main path runs it, one round on a plan built once (its time, the plan's,
    the public call's, and both kernels' device time alone from a CUDA
    graph), bit-equal to the CPU plain version, with the longest segment;
 4. the main path at full width: 500 PM x 4096 VM under 2000 DAS-2-like
    tasks (the largest row of the repository's throughput grid), with the
-   kernels' launch counters set to 0 just before and read just after;
-   then a cloud above the fused solve's size gate, which runs the
+   kernels' launch counters set to 0 just before and read just after, and
+   each solve's live-flow count summed on the device (live_flows_max and
+   live_flows_hist, binned by the solve's code path); then a cloud above the fused solve's size gate, which runs the
    round-wise fill_stats path, counted the same way;
 5. cross-check: 20 PM x 1024 VM under 200 tasks twice on the card (the two
    runs must be bit-identical) and once on the CPU (exact integers and
@@ -109,6 +121,23 @@ def time_ms(fn, n: int = 100, warmup: int = 10) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_us(fn, n: int = 1000, reps: int = 5) -> float:
+    """Host time of one call in microseconds: a host clock over ``n`` calls
+    that enqueue work with no synchronisation in between, the median of
+    ``reps`` such runs (the host is shared, and its clock spreads)."""
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -205,11 +234,31 @@ def capture(n_pm: int, n_vm: int, n_tasks: int) -> dict:
     return best
 
 
+def launch_floor(dev) -> dict:
+    """An empty kernel launched through the ``ctypes`` path of masked_min
+    (same marshalling, the stream read the same way), timed as the kernels
+    are: between CUDA events, alone from a CUDA graph, and on the host."""
+    from repro_torch.kernels import horizon
+    from repro_torch.kernels.maxmin import _stream
+
+    fn = horizon._lib().empty_launch
+    x = torch.empty(16, device=dev)
+    ptr = x.data_ptr()
+
+    def call():
+        assert fn(ptr, ptr, ptr, None, 16, _stream(dev)) == 0
+
+    return dict(launch_floor_ms=time_ms(call),
+                launch_floor_device_ms=graph_ms(call),
+                launch_floor_host_us=host_us(call))
+
+
 def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     """Each kernel against its plain version, on random stress inputs and
     on inputs captured from the main path; timed on the captured inputs.
     Returns per-kernel records (without launch counts) and the checks."""
     from repro_torch.kernels import horizon, maxmin
+    from repro_torch.kernels.maxmin_cases import solve_cases
 
     records, checks = {}, {}
     C, S = 4596, 6098                 # 500 PM x 4096 VM: F = V+P, S = 4P+2+V
@@ -218,7 +267,7 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     checks["captured_live_flows"] = {"full_width": main["live"],
                                      "above_gate": above["live"]}
 
-    def rounds_of(args):
+    def rounds_of(args, max_iters=64):
         n = []
 
         def counting_round(*a):
@@ -226,41 +275,78 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
             return maxmin.fill_round_plain(*a)
 
         out = maxmin.progressive_filling(*args, counting_round,
-                                         plan_fn=maxmin.fill_plan_plain)
+                                         plan_fn=maxmin.fill_plan_plain,
+                                         max_iters=max_iters)
         return out, len(n)
 
-    # ---- maxmin_solve: random stress (64 rounds) and the captured pass ----
+    # ---- maxmin_solve: random stress (64 rounds), the captured pass and
+    # every edge case, each bit-equal to the CPU plain version ------------
     (prov, cons, p_l, live, perf, _, _), dv = flow_inputs(C, S, 0, dev)
-    cases = {"random": ((prov, cons, p_l, live, perf), dv[:5]),
+    cases = {"random": ((prov, cons, p_l, live, perf), dv[:5], 64),
              "captured": (tuple(x.cpu() for x in main["solve"]),
-                          main["solve"])}
-    for label, (host, dargs) in cases.items():
-        got = maxmin.maxmin_solve(*dargs)
-        got2 = maxmin.maxmin_solve(*dargs)
+                          main["solve"], 64)}
+    for case in solve_cases():
+        host = tuple(torch.from_numpy(x) for x in case.args())
+        cases[case.label] = (host, tuple(x.to(dev) for x in host),
+                             case.max_iters)
+    for label, (host, dargs, iters) in cases.items():
+        got = maxmin.maxmin_solve(*dargs, max_iters=iters)
+        got2 = maxmin.maxmin_solve(*dargs, max_iters=iters)
         torch.cuda.synchronize()
-        want, n_rounds = rounds_of(host)
-        g = got.cpu().numpy()
-        check_close(f"maxmin_solve {label}", g, want.numpy())
+        want, n_rounds = rounds_of(host, iters)
+        g, w = got.cpu().numpy(), want.numpy()
+        assert np.array_equal(g.view(np.uint32), w.view(np.uint32)), (
+            f"maxmin_solve {label}: not bit-equal to the CPU plain version "
+            f"(max abs err {max_abs_err(g, w)})")
         assert np.array_equal(g.view(np.uint32), got2.cpu().numpy().view(
             np.uint32)), f"maxmin_solve differs between two launches ({label})"
+        # the engine's other route (a plan, then a round at a time) on the
+        # same inputs: the two routes of maxmin_rates agree bit for bit
+        wise = maxmin.progressive_filling(*dargs, maxmin.fill_round,
+                                          max_iters=iters).cpu().numpy()
+        assert np.array_equal(wise.view(np.uint32), w.view(np.uint32)), (
+            f"maxmin_solve {label}: the round-wise route is not bit-equal "
+            f"to the CPU plain version (max abs err {max_abs_err(wise, w)})")
         checks[f"maxmin_solve_{label}"] = dict(
-            live=int(host[3].sum()), rounds=n_rounds,
-            max_abs_err=max_abs_err(g, want.numpy()),
-            bit_equal_to_cpu_plain=bool(np.array_equal(
-                g.view(np.uint32), want.numpy().view(np.uint32))))
+            live=int(host[3].sum()), rounds=n_rounds, max_iters=iters,
+            max_abs_err=max_abs_err(g, w), bit_equal_to_cpu_plain=True,
+            round_wise_bit_equal=True)
     n_live, n_rounds = (checks["maxmin_solve_captured"][k]
                         for k in ("live", "rounds"))
     dargs = main["solve"]
+    hp, hc, _, hl, _ = (x.cpu() for x in dargs)
+    # the bound counts what these inputs need: live read, r written, each
+    # live flow's provider, consumer and p_l, each touched spreader's perf
+    touched = int(torch.unique(torch.cat([hp[hl], hc[hl]])).numel())
+    runs = int(torch.unique(hp[hl]).numel() + torch.unique(hc[hl]).numel())
+    floor = launch_floor(dev)
+    # the general side of the solve (block sort, named barriers, the global
+    # workspace), timed on cases with more than 32 live flows
+    general = {}
+    for label in ("random", "smem_capacity", "one_provider",
+                  "all_64_rounds"):
+        _, gargs, iters = cases[label]
+
+        def call(gargs=gargs, iters=iters):
+            return maxmin.maxmin_solve(*gargs, max_iters=iters)
+
+        general[label] = dict(
+            live=checks[f"maxmin_solve_{label}"]["live"],
+            rounds=checks[f"maxmin_solve_{label}"]["rounds"],
+            ms=time_ms(call, n=20, warmup=3), device_ms=graph_ms(call, n=20))
     records["maxmin_solve"] = dict(
         shape=f"C={C} S={S} live={n_live} rounds={n_rounds} "
-              f"(busiest captured pass)",
+              f"touched spreaders={touched} (busiest captured pass)",
         max_abs_err=max(checks[f"maxmin_solve_{k}"]["max_abs_err"]
                         for k in cases),
         ms=time_ms(lambda: maxmin.maxmin_solve(*dargs)),
+        device_ms=graph_ms(lambda: maxmin.maxmin_solve(*dargs)),
+        host_us=host_us(lambda: maxmin.maxmin_solve(*dargs)),
         plain_ms=time_ms(lambda: maxmin.maxmin_solve_plain(*dargs),
                          n=50, warmup=3),
-        bytes=17 * C + 4 * S,
-        ops=n_rounds * (4 * n_live + 8 * S + 6 * C))
+        bytes=C + 4 * C + 12 * n_live + 4 * touched,
+        ops=n_rounds * (10 * n_live + 3 * runs), general_cases=general,
+        **floor)
 
     # ---- fill_stats: random at both shapes, and the captured first round
     # of the above-gate cell's busiest pass; the public call (plan from
@@ -352,19 +438,75 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
                  torch.tensor([False, True, False, True])))
     edge.append(("-inf masked in", torch.tensor([1.0, -np.inf, 2.0]),
                  torch.tensor([True, True, False])))
+    edge.append(("NaN masked in", torch.tensor([1.0, np.nan, -2.0]),
+                 torch.tensor([True, True, True])))
+    # the grid path (several blocks and the last block's reduction)
+    for n in (65537, 200_000):
+        rs = np.random.RandomState(n)
+        c = torch.from_numpy((rs.randn(n) * 50).astype(np.float32))
+        m = torch.from_numpy(rs.rand(n) < 0.5)
+        edge.append((f"grid path random N={n}", c, m))
+        edge.append((f"grid path all masked N={n}", c,
+                     torch.zeros(n, dtype=torch.bool)))
+        m1 = torch.zeros(n, dtype=torch.bool)
+        m1[-1] = True
+        edge.append((f"grid path survivor at the last lane N={n}", c, m1))
     for label, c, m in edge:
         k = horizon.masked_min(c.to(dev), m.to(dev)).cpu().item()
         p = horizon.masked_min_plain(c, m).item()
-        assert k == p, f"masked_min {label}: kernel {k} plain {p}"
+        assert k == p or (np.isnan(k) and np.isnan(p)), (
+            f"masked_min {label}: kernel {k} plain {p}")
+    # views that start off a 16-byte boundary: cand and mask aligned
+    # together (scalar head, vector body, scalar tail), and apart (all
+    # scalar)
+    dc_base = torch.from_numpy((rng.randn(N + 8) * 100).astype(
+        np.float32)).to(dev)
+    dm_base = torch.from_numpy(rng.rand(N + 16) < 0.6).to(dev)
+    views = {"cand and mask one lane in": (1, 1),
+             "cand one lane in, mask aligned": (1, 0),
+             "cand 3 and mask 7 lanes in": (3, 7)}
+    for label, (co, mo) in views.items():
+        c, m = dc_base[co:co + N], dm_base[mo:mo + N]
+        k = horizon.masked_min(c, m).cpu().item()
+        p = horizon.masked_min_plain(c.cpu(), m.cpu()).item()
+        assert k == p, f"masked_min view {label}: kernel {k} plain {p}"
+    # two grid-path calls in flight at once on two streams: each counts on
+    # a ticket of its own, so each equals its plain version
+    pair = []
+    for n, seed in ((200_000, 11), (131_072, 12)):
+        rs = np.random.RandomState(seed)
+        pair.append((torch.from_numpy((rs.randn(n) * 50).astype(np.float32)),
+                     torch.from_numpy(rs.rand(n) < 0.5)))
+    for _ in range(10):
+        streams = [torch.cuda.Stream() for _ in pair]
+        ins = [(c.to(dev), m.to(dev)) for c, m in pair]
+        outs = []
+        for st, (c, m) in zip(streams, ins):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(horizon.masked_min(c, m))
+        torch.cuda.synchronize()
+        for (c, m), got in zip(pair, outs):
+            k, p = got.item(), horizon.masked_min_plain(c, m).item()
+            assert k == p, f"masked_min on two streams: kernel {k} plain {p}"
     assert horizon.masked_min(torch.arange(10.).to(dev), torch.zeros(
         10, dtype=torch.bool, device=dev)).item() == float(np.float32(3e38))
+    try:
+        horizon.masked_min(torch.zeros(0, device=dev),
+                           torch.zeros(0, dtype=torch.bool, device=dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("masked_min accepted an empty vector")
     torch.cuda.synchronize()
-    checks["masked_min_cases"] = len(edge) + 1
+    checks["masked_min_cases"] = len(edge) + len(views) + len(pair) + 2
     records["masked_min"] = dict(
         shape=f"N={N} (busiest captured pass)", max_abs_err=0.0,
         ms=time_ms(lambda: horizon.masked_min(dcand, dmask)),
+        device_ms=graph_ms(lambda: horizon.masked_min(dcand, dmask)),
+        host_us=host_us(lambda: horizon.masked_min(dcand, dmask)),
         plain_ms=time_ms(lambda: horizon.masked_min_plain(dcand, dmask)),
-        bytes=5 * N + 4, ops=2 * N)
+        bytes=5 * N + 4, ops=2 * N, **floor)
     return records, checks
 
 
@@ -455,9 +597,21 @@ def run(spec, trace, params, device):
     return res, time.perf_counter() - t0
 
 
+# live flows per solve, by the fused solve's code path: none (no round),
+# one warp with no barrier, one warp's register sort, the block sort in
+# shared memory, the global workspace
+LIVE_BINS = ((0, 0), (1, 16), (17, 32), (33, 1024), (1025, 2 ** 31))
+
+
+def live_histogram(counts: np.ndarray) -> dict:
+    return {f"{lo}-{hi}" if hi < 2 ** 31 else f">{lo - 1}":
+            int(((counts >= lo) & (counts <= hi)).sum())
+            for lo, hi in LIVE_BINS}
+
+
 def main_path(n_tasks: int) -> dict:
     from repro_torch import kernels
-    from repro_torch.core import engine
+    from repro_torch.core import engine, fairshare
     from repro_torch.core.loop.state import TASK_DONE, TASK_REJECTED
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
@@ -472,11 +626,24 @@ def main_path(n_tasks: int) -> dict:
         spec, params = engine.make_cloud(
             n_pm=n_pm, n_vm=n_vm, pm_cores=64.0, pm_sched="ondemand",
             max_events=4_000_000)
+        # each solve's live-flow count, summed on the device (one reduction
+        # a pass, no host read) and read once after the run
+        lives, rates0 = [], fairshare.SCHEDULERS["maxmin"]
+
+        def rates(prov, cons, p_l, live, perf, **kw):
+            lives.append(live.sum())
+            return rates0(prov, cons, p_l, live, perf, **kw)
+
+        fairshare.SCHEDULERS["maxmin"] = rates
         kernels.reset_launch_counts()
-        res, wall = run(spec, trace, params, "cuda")
+        try:
+            res, wall = run(spec, trace, params, "cuda")
+        finally:
+            fairshare.SCHEDULERS["maxmin"] = rates0
         launches = dict(kernels.launch_counts(),
                         **kernels.sub_launch_counts())
         events = int(res.n_events)
+        counts = torch.stack(lives).cpu().numpy()
         ts = res.state.task_state.cpu().numpy()
         rd = {k: float(v.sum()) for k, v in res.readings(spec).items()}
         rec = dict(n_pm=n_pm, n_vm=n_vm, tasks=int(trace.n),
@@ -485,7 +652,9 @@ def main_path(n_tasks: int) -> dict:
                    completed=int((ts == TASK_DONE).sum()),
                    rejected=int((ts == TASK_REJECTED).sum()),
                    overflow=bool(res.overflow), t_end=float(res.t_end),
-                   readings_j=rd)
+                   readings_j=rd, solves=int(counts.size),
+                   live_flows_max=int(counts.max()),
+                   live_flows_hist=live_histogram(counts))
         print(json.dumps({name: rec}))
         assert not rec["overflow"], f"{name}: VM slot pool overflowed"
         assert rec["completed"] + rec["rejected"] == rec["tasks"], (
@@ -952,17 +1121,31 @@ def main() -> int:
               if k.startswith("_Z16flash_mma_kernelILi128E")]
     assert mma128 and " 0 bytes spill stores" in mma128[0], (
         "the bf16 flash kernel spills at D = 128", mma128)
+    solve = [v for k, v in ptxas["maxmin"].items()
+             if k.startswith("_Z19maxmin_solve_kernel")]
+    assert solve and " 0 bytes spill stores" in solve[0], (
+        "the solve kernel spills", solve)
 
-    kern, checks = kernel_phase(dev, n_capture=300)
-    lm_kern, lm_checks = lm_kernel_phase(dev)
+    phase_s = {"build": record["build"]["wall_s"]}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    kern, checks = timed("kernels", kernel_phase, dev, 300)
+    lm_kern, lm_checks = timed("lm_kernels", lm_kernel_phase, dev)
     kern.update(lm_kern)
     checks.update(lm_checks)
     record["kernel_checks"] = checks
     print(json.dumps({"kernel_checks": checks}))
-    record["main_path"] = main_path(args.tasks)
-    record["cross_check"] = cross_check()
-    record["profile"] = profile_phase(150)
-    record["main_path"].update(lm_phase(dev))
+    record["main_path"] = timed("main_path", main_path, args.tasks)
+    record["cross_check"] = timed("cross_check", cross_check)
+    record["profile"] = timed("profile", profile_phase, 150)
+    record["main_path"].update(timed("lm", lm_phase, dev))
+    record["phase_s"] = phase_s
+    print(json.dumps({"phase_s": phase_s}))
 
     sources = {"maxmin_solve": ("src/repro_torch/csrc/maxmin.cu",
                                 "src/repro/kernels/maxmin.py:201",
@@ -992,7 +1175,10 @@ def main() -> int:
             shape=k["shape"], main_path_cell=cell,
             **{x: k[x] for x in ("variant", "plan_ms", "public_ms",
                                  "graph_ms", "plan_graph_ms",
-                                 "longest_segment") if x in k}))
+                                 "longest_segment", "device_ms", "host_us",
+                                 "general_cases",
+                                 "launch_floor_ms", "launch_floor_device_ms",
+                                 "launch_floor_host_us") if x in k}))
     record["kernels"] = rows
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -13,25 +13,50 @@
 // JAX reference's segment_sum: the rates are bit-identical to the plain
 // version and identical from run to run.  No float atomics anywhere.
 //
-// Both paths group the flows by segment the same way (block_inclusive_scan
-// over the counts, then warp_stable_fill): a stable CSR per side, provider
-// and consumer, each segment listing its flows in ascending index.
+// The solve works on the live flows only.  One block ranks them with one
+// scan (each thread a contiguous chunk of flows), copies the L live flows
+// in ascending index into shared memory (global scratch when L exceeds
+// SOLVE_SMEM_FLOWS, with the arrays read at scattered places kept in shared
+// memory up to SOLVE_HOT_FLOWS), and sorts them twice by the key (segment, rank): a
+// stable grouping by provider and by consumer that lists only the touched
+// spreaders (one warp sorts in registers up to 32 live flows).  Each round
+// then runs a thread per touched segment (its sum in ascending flow
+// index), a thread per live flow (its headroom), one min (a warp redux)
+// and the freeze, on only the warps that 2 L threads fill: up to 16 live
+// flows one warp with no barrier, else three named barriers a round over
+// those warps.  Nothing is of size S.  Min and the clamp propagate NaN as
+// torch.minimum / torch.clamp_min and torch.min do, in the solve and in
+// fill_round alike: both take a segment's headroom from one walk
+// (segment_walk), so the two routes of the engine's maxmin_rates give the
+// same rates for any inputs, NaN included.  The part after the ranking is
+// compiled three times, once for each placement of its arrays, so that
+// each copy addresses shared arrays as shared (a pointer that may point to
+// either space would make every access a generic one).
 //
-// The plan keeps only the flows that can contribute, live | unfrozen when
-// it is built, and that drop is exact: a sum starts from +0.0, and from
-// that start an accumulator is never -0.0; a flow that is neither live nor
-// unfrozen adds +0.0 to the committed sum and 0 to the count; and adding
-// +-0.0 to a value that is not -0.0 leaves it unchanged.  Within one solve
-// provider, consumer and live do not change and unfrozen stays a subset of
-// live, so one plan from live serves every round.
+// The plan of the round-wise path keeps only the flows that can
+// contribute, live | unfrozen when it is built, and that drop is exact: a
+// sum starts from +0.0, and from that start an accumulator is never -0.0;
+// a flow that is neither live nor unfrozen adds +0.0 to the committed sum
+// and 0 to the count; and adding +-0.0 to a value that is not -0.0 leaves
+// it unchanged.  Within one solve provider, consumer and live do not
+// change and unfrozen stays a subset of live, so one plan from live serves
+// every round.
 //
 // What bounds them on an H100: at the engine's sizes (C ~ 5-10k flows,
-// S ~ 6-14k spreaders) the work is a few hundred kilobytes per call, so one
-// launch (a few microseconds) and the dependent rounds inside the single
-// block bound maxmin_solve.  fill_round is bound by its launch and by the
-// serial walk of the longest segment (its gathers are issued ahead of the
-// adds, so only the f32 adds are serial); fill_plan by its one block's
-// count, scan and the warps' stable fill.  None touches the tensor cores.
+// S ~ 6-14k spreaders, a few dozen live flows) each call moves a few to a
+// few hundred kilobytes, which 3.35 TB/s moves in well under a
+// microsecond, so latency bounds all three: the launch, the dependent
+// global round trips and the block barriers.  The solve makes three
+// dependent global round trips before its rounds (live, then the live
+// flows' ids and p_l, then their spreaders' perf) and runs its rounds from
+// shared memory, each one dependent chain of a few hundred instructions on
+// as few warps as the live flows fill.  Above SOLVE_SMEM_FLOWS live flows
+// its one SM's load unit bounds it: the walks gather rates and headroom at
+// scattered places, which shared memory serves a bank at a time where L1
+// would take a sector a lane.  fill_round is bound by its launch
+// and the serial walk of its longest segment (gathers issued ahead of the
+// adds); fill_plan by its one block's count, scan and the warps' stable
+// fill.  None touches the tensor cores.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (no --use_fast_math: the freeze test and the headroom division must round
@@ -41,42 +66,39 @@
 #include <stdint.h>
 #include <math.h>
 
-#define BIG_F 3.0e38f
-#define FULL_MASK 0xffffffffu
-#define SOLVE_THREADS 1024
+#include "nan_math.cuh"
 
-__device__ __forceinline__ float block_min(float v, float* red) {
-    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL_MASK, v, o));
-    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    int nw = (blockDim.x + 31) >> 5;
-    v = (threadIdx.x < nw) ? red[threadIdx.x] : BIG_F;
-    if (warp == 0)
-        for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL_MASK, v, o));
-    if (threadIdx.x == 0) red[0] = v;
-    __syncthreads();
-    float out = red[0];
-    __syncthreads();
-    return out;
-}
+typedef unsigned long long u64;
 
-__device__ __forceinline__ int block_sum_int(int v, int* red) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
-    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    int nw = (blockDim.x + 31) >> 5;
-    v = (threadIdx.x < nw) ? red[threadIdx.x] : 0;
-    if (warp == 0)
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
-    if (threadIdx.x == 0) red[0] = v;
-    __syncthreads();
-    int out = red[0];
-    __syncthreads();
-    return out;
+// Headroom of one segment: its members' committed rates and unfrozen flags
+// added in their listed order (ascending flow index) from +0.0, then
+// clamp_min(perf - committed, 0) / count, or BIG_F with no unfrozen member.
+// at(m) is the m-th member's index into rate and unfrozen; the indices,
+// then the rates and flags, are loaded four ahead of the adds, so only the
+// adds form a chain.
+template <class At, class Rate, class Unfrozen>
+__device__ __forceinline__ float segment_walk(int m, int end, float perf,
+                                              At at, Rate rate,
+                                              Unfrozen unfrozen) {
+    float com = 0.0f;
+    int cnt = 0;
+    for (; m + 4 <= end; m += 4) {
+        int j[4];
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) j[u] = at(m + u);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) { v[u] = rate(j[u]); cnt += unfrozen(j[u]); }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) com = __fadd_rn(com, v[u]);
+    }
+    for (; m < end; ++m) {
+        const int j = at(m);
+        com = __fadd_rn(com, rate(j));
+        cnt += unfrozen(j);
+    }
+    // the count is an integer below 2**24: its f32 value is exact
+    return cnt > 0 ? __fdiv_rn(clamp0(__fsub_rn(perf, com)), (float)cnt) : BIG_F;
 }
 
 // In-place inclusive prefix sum of a[0..n) by one block: each thread scans a
@@ -142,112 +164,302 @@ __device__ void warp_stable_fill(SegAt seg_at, int n, int base, int* cursor,
     }
 }
 
-// Dynamic shared memory: perf[S] dp[S] dc[S] offp[S+1] offc[S+1].
-extern "C" size_t maxmin_solve_smem_bytes(int S) {
-    return (size_t)3 * S * sizeof(float) + (size_t)2 * (S + 1) * sizeof(int);
+// ---- the fused solve -------------------------------------------------------
+
+#define SOLVE_THREADS 1024
+#define SOLVE_SMEM_FLOWS 1024   // live flows held in shared memory
+// live flows whose rates, flags and headroom (13 bytes a flow) fit the same
+// shared memory while the rest of their arrays sit in the workspace
+#define SOLVE_HOT_FLOWS 5120
+#define KEY_PAD 0xffffffffffffffffull
+
+__host__ __device__ constexpr long long pow2_at_least(long long n) {
+    long long p = 1;
+    while (p < n) p <<= 1;
+    return p;
 }
 
-__global__ void __launch_bounds__(SOLVE_THREADS)
+// The solve's arrays for up to `cap` live flows.  A key is (segment << 32 |
+// live rank); a run is the sorted keys of one segment, and its head is its
+// first sorted position.
+struct SolveArrays {
+    u64* key_p;            // [pow2(cap)] provider keys, sorted in place
+    u64* key_c;            // [pow2(cap)] consumer keys
+    int* idx;              // [cap] flow index of each live flow, ascending
+    float* pl;             // [cap] p_l of each live flow
+    float* rl;             // [cap] its rate, the carry of the rounds
+    float* df;             // [cap] its headroom in this round
+    int* slot_p;           // [cap] head of its provider run
+    int* slot_c;           // [cap] head of its consumer run
+    int* end_p;            // [cap] at a head: one past its run; else 0
+    int* end_c;
+    float* perf_p;         // [cap] at a head: the spreader's perf
+    float* perf_c;
+    float* d_p;            // [cap] at a head: this round's headroom
+    float* d_c;
+    uint8_t* uf;           // [cap] unfrozen
+};
+
+__host__ __device__ constexpr size_t solve_arrays_bytes(long long cap) {
+    return (size_t)(2 * pow2_at_least(cap) * sizeof(u64) + cap * (12 * 4 + 1));
+}
+static_assert(13 * SOLVE_HOT_FLOWS <= solve_arrays_bytes(SOLVE_SMEM_FLOWS),
+              "the hot arrays must fit the solve's shared memory");
+
+__device__ __forceinline__ SolveArrays carve(char* base, long long cap) {
+    SolveArrays a;
+    const long long kcap = pow2_at_least(cap);
+    a.key_p = reinterpret_cast<u64*>(base);
+    a.key_c = a.key_p + kcap;
+    int* w = reinterpret_cast<int*>(a.key_c + kcap);
+    a.idx = w;                                   w += cap;
+    a.pl = reinterpret_cast<float*>(w);          w += cap;
+    a.rl = reinterpret_cast<float*>(w);          w += cap;
+    a.df = reinterpret_cast<float*>(w);          w += cap;
+    a.slot_p = w;                                w += cap;
+    a.slot_c = w;                                w += cap;
+    a.end_p = w;                                 w += cap;
+    a.end_c = w;                                 w += cap;
+    a.perf_p = reinterpret_cast<float*>(w);      w += cap;
+    a.perf_c = reinterpret_cast<float*>(w);      w += cap;
+    a.d_p = reinterpret_cast<float*>(w);         w += cap;
+    a.d_c = reinterpret_cast<float*>(w);         w += cap;
+    a.uf = reinterpret_cast<uint8_t*>(w);
+    return a;
+}
+
+// The arrays of a solve of SOLVE_SMEM_FLOWS to SOLVE_HOT_FLOWS live flows:
+// those that every round reads at scattered places (the rates and flags,
+// gathered by each segment's walk, and the headroom, gathered by each
+// flow) in shared memory, the rest, read in order, in the workspace.  One
+// block's L1 serves scattered loads a sector at a time, which at a few
+// thousand live flows costs more than the rounds' arithmetic.
+__device__ __forceinline__ SolveArrays carve_hot(char* global, long long cap,
+                                                 char* shared) {
+    SolveArrays a = carve(global, cap);
+    a.rl = reinterpret_cast<float*>(shared);
+    a.d_p = a.rl + SOLVE_HOT_FLOWS;
+    a.d_c = a.d_p + SOLVE_HOT_FLOWS;
+    a.uf = reinterpret_cast<uint8_t*>(a.d_c + SOLVE_HOT_FLOWS);
+    return a;
+}
+
+// Exclusive prefix sum of one int per thread across the block, with the
+// block's total; one barrier (every warp scans the warp totals itself).
+__device__ __forceinline__ int block_exclusive_scan(int v, int* red, int* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    int x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+        int u = __shfl_up_sync(FULL_MASK, x, o);
+        if (lane >= o) x += u;
+    }
+    if (lane == 31) red[warp] = x;
+    __syncthreads();
+    int w = lane < nw ? red[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+        int u = __shfl_up_sync(FULL_MASK, w, o);
+        if (lane >= o) w += u;
+    }
+    *total = __shfl_sync(FULL_MASK, w, 31);
+    int before = __shfl_sync(FULL_MASK, w, (warp + 31) & 31);
+    return (warp > 0 ? before : 0) + x - v;
+}
+
+// Ascending sort of key[0..L), L <= N <= 32, N a power of two, by one warp
+// in registers (a bitonic network over N lanes, padded with KEY_PAD): no
+// block barrier.
+__device__ __forceinline__ void warp_sort(u64* key, int L, int N) {
+    const int lane = threadIdx.x & 31;
+    u64 v = lane < L ? key[lane] : KEY_PAD;
+    for (int size = 2; size <= N; size <<= 1)
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+            const u64 o = __shfl_xor_sync(FULL_MASK, v, stride);
+            const bool up = (lane & size) == 0;
+            const bool lower = (lane & stride) == 0;
+            v = (lower == up) ? (v < o ? v : o) : (v < o ? o : v);
+        }
+    if (lane < L) key[lane] = v;
+}
+
+// Ascending bitonic sort of kp[0..N) and kc[0..N) together by the block, N a
+// power of two (the keys past the live flows hold KEY_PAD).
+__device__ __forceinline__ void block_sort(u64* kp, u64* kc, long long N) {
+    const long long half = N >> 1;
+    for (long long size = 2; size <= N; size <<= 1)
+        for (long long stride = size >> 1; stride > 0; stride >>= 1) {
+            for (long long t = threadIdx.x; t < N; t += blockDim.x) {
+                const bool c = t >= half;
+                const long long p = c ? t - half : t;
+                const long long i = 2 * p - (p & (stride - 1));
+                u64* key = c ? kc : kp;
+                const u64 x = key[i], y = key[i + stride];
+                if ((x > y) == ((i & size) == 0)) { key[i] = y; key[i + stride] = x; }
+            }
+            __syncthreads();
+        }
+}
+
+// Barrier of the first W warps of the block: a warp barrier for one warp,
+// else named barrier 1 over 32 W threads (the other warps have exited).
+__device__ __forceinline__ void round_sync(int W) {
+    if (W == 1) __syncwarp();
+    else asm volatile("bar.sync 1, %0;" :: "r"(W << 5) : "memory");
+}
+
+// Everything after the ranking, on arrays `a` (in shared memory, in the
+// global scratch, or split between them: the caller calls it once for
+// each, so that each copy is compiled for its memory spaces).  Thread `tid` holds the live flows of its
+// chunk [lo, hi), the first of rank k.
+__device__ __forceinline__ void solve_live(
+        const SolveArrays a, int L, int k, int lo, int hi,
+        const int* __restrict__ prov, const int* __restrict__ cons,
+        const float* __restrict__ p_l, const uint8_t* __restrict__ live,
+        const float* __restrict__ perf, float* __restrict__ r,
+        int max_iters, float thr_scale, int* red_i, float* red_f) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+    // ---- copy the live flows out in ascending index; r = 0 for the others
+    for (int j = lo; j < hi; ++j) {
+        if (live[j]) {
+            a.idx[k] = j;
+            a.pl[k] = p_l[j];
+            a.rl[k] = 0.0f;
+            a.uf[k] = 1;
+            a.key_p[k] = ((u64)(unsigned)prov[j] << 32) | (unsigned)k;
+            a.key_c[k] = ((u64)(unsigned)cons[j] << 32) | (unsigned)k;
+            ++k;
+        } else {
+            r[j] = 0.0f;
+        }
+    }
+    // ---- group by provider and by consumer: sort by (segment, rank) ------
+    const long long N = pow2_at_least(L);
+    if (N > 32)
+        for (long long i = L + tid; i < N; i += nt) a.key_p[i] = a.key_c[i] = KEY_PAD;
+    __syncthreads();
+    if (N <= 32) {
+        if (warp == 0) warp_sort(a.key_p, L, (int)N);
+        else if (warp == 1) warp_sort(a.key_c, L, (int)N);
+    } else {
+        block_sort(a.key_p, a.key_c, N);
+    }
+    __syncthreads();
+    // ---- from here on only the warps that the live flows need take part:
+    // one warp (no barrier at all) up to 16 live flows ----------------------
+    const int W = min(nw, (2 * L + 31) >> 5);
+    if (warp >= W) return;
+    const int nr = W << 5;
+    // ---- runs: each head finds its end, points its flows at itself and
+    // gathers its spreader's perf (the only reads of perf) -----------------
+    for (int i = tid; i < 2 * L; i += nr) {
+        const bool c = i >= L;
+        const int s = c ? i - L : i;
+        const u64* key = c ? a.key_c : a.key_p;
+        const unsigned seg = (unsigned)(key[s] >> 32);
+        int end = 0;
+        if (s == 0 || (unsigned)(key[s - 1] >> 32) != seg) {
+            int* slot = c ? a.slot_c : a.slot_p;
+            end = s;
+            do {
+                slot[(unsigned)key[end]] = s;
+                ++end;
+            } while (end < L && (unsigned)(key[end] >> 32) == seg);
+            (c ? a.perf_c : a.perf_p)[s] = perf[seg];
+        }
+        (c ? a.end_c : a.end_p)[s] = end;
+    }
+    round_sync(W);
+
+    // ---- progressive filling rounds ----------------------------------------
+    int left = L;
+    for (int it = 0; it < max_iters && left > 0; ++it) {
+        // per touched spreader: headroom from its run
+        for (int i = tid; i < 2 * L; i += nr) {
+            const bool c = i >= L;
+            const int s = c ? i - L : i;
+            const int end = (c ? a.end_c : a.end_p)[s];
+            if (end) {
+                const u64* key = c ? a.key_c : a.key_p;
+                (c ? a.d_c : a.d_p)[s] = segment_walk(
+                    s, end, (c ? a.perf_c : a.perf_p)[s],
+                    [key](int m) { return (int)(unsigned)key[m]; },
+                    [rl = a.rl](int q) { return rl[q]; },
+                    [uf = a.uf](int q) { return (int)uf[q]; });
+            }
+        }
+        round_sync(W);
+        // per live flow: increment headroom; the min over them is delta
+        float m = BIG_F;
+        for (int q = tid; q < L; q += nr) {
+            const float dp = a.d_p[a.slot_p[q]], dc = a.d_c[a.slot_c[q]];
+            const float room = clamp0(__fsub_rn(a.pl[q], a.rl[q]));
+            const float d = a.uf[q] ? nan_min(nan_min(dp, dc), room) : BIG_F;
+            a.df[q] = d;
+            m = nan_min(m, d);
+        }
+        float delta = warp_min(m);
+        if (W > 1) {
+            if (lane == 0) red_f[warp] = delta;
+            round_sync(W);
+            delta = warp_min(lane < W ? red_f[lane] : BIG_F);
+        }
+        if (!(isfinite(delta) && delta < BIG_F)) delta = 0.0f;
+        const float thr = __fadd_rn(__fmul_rn(delta, thr_scale), 1e-12f);
+        // raise the unfrozen flows, freeze those whose constraint bound
+        int nleft = 0;
+        for (int q = tid; q < L; q += nr) {
+            if (a.uf[q]) {
+                a.rl[q] = __fadd_rn(a.rl[q], delta);
+                if (a.df[q] <= thr) a.uf[q] = 0;
+                else ++nleft;
+            }
+        }
+        left = __reduce_add_sync(FULL_MASK, nleft);
+        if (W > 1) {
+            if (lane == 0) red_i[warp] = left;
+            round_sync(W);
+            left = __reduce_add_sync(FULL_MASK, lane < W ? red_i[lane] : 0);
+        } else {
+            __syncwarp();
+        }
+    }
+    for (int q = tid; q < L; q += nr) r[a.idx[q]] = a.rl[q];
+}
+
+// One block a launch: said to ptxas, which otherwise caps the registers at
+// 32 with the three placements inlined, and spills.
+__global__ void __launch_bounds__(SOLVE_THREADS, 1)
 maxmin_solve_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
                     const float* __restrict__ p_l,
                     const uint8_t* __restrict__ live,
-                    const float* __restrict__ perf_g,
-                    float* r,                // [C] out, also the carry
-                    float* df,               // [C] scratch
-                    uint8_t* unfrozen,       // [C] scratch
-                    int* csr_p, int* csr_c,  // [C] scratch
-                    int C, int S, int max_iters, float thr_scale) {
-    extern __shared__ float smem[];
-    float* perf = smem;
-    float* dp = perf + S;
-    float* dc = dp + S;
-    int* offp = reinterpret_cast<int*>(dc + S);
-    int* offc = offp + S + 1;
-    __shared__ float red_f[32];
+                    const float* __restrict__ perf,
+                    float* __restrict__ r,   // [C] out
+                    char* scratch,           // the arrays when L > SOLVE_SMEM_FLOWS
+                    int C, int max_iters, float thr_scale) {
+    extern __shared__ __align__(16) char solve_smem[];
     __shared__ int red_i[32];
-
+    __shared__ float red_f[32];
     const int tid = threadIdx.x, nt = blockDim.x;
 
-    // ---- once per call: CSR of the live flows by provider and consumer ----
-    for (int s = tid; s <= S; s += nt) { offp[s] = 0; offc[s] = 0; }
-    for (int s = tid; s < S; s += nt) perf[s] = perf_g[s];
-    __syncthreads();
-    int n_live = 0;
-    for (int j = tid; j < C; j += nt) {
-        uint8_t l = live[j];
-        unfrozen[j] = l;
-        r[j] = 0.0f;
-        if (l) {
-            atomicAdd(&offp[prov[j] + 1], 1);   // integer counts only
-            atomicAdd(&offc[cons[j] + 1], 1);
-            ++n_live;
-        }
-    }
-    __syncthreads();
-    block_inclusive_scan(offp, S + 1, red_i);
-    block_inclusive_scan(offc, S + 1, red_i);
-    int* curp = reinterpret_cast<int*>(dp);   // dp/dc double as cursors here
-    int* curc = reinterpret_cast<int*>(dc);
-    for (int s = tid; s < S; s += nt) { curp[s] = offp[s]; curc[s] = offc[s]; }
-    __syncthreads();
-    if (tid < 32)
-        warp_stable_fill([=](int j) { return live[j] ? prov[j] : -1; }, C, 0,
-                         curp, csr_p);
-    else if (tid < 64)
-        warp_stable_fill([=](int j) { return live[j] ? cons[j] : -1; }, C, 0,
-                         curc, csr_c);
-    __syncthreads();
-    int n_unfrozen = block_sum_int(n_live, red_i);
-
-    // ---- progressive filling rounds --------------------------------------
-    for (int it = 0; it < max_iters && n_unfrozen > 0; ++it) {
-        // per-spreader headroom: committed rate and unfrozen count, each
-        // summed over the segment in ascending flow index
-        for (int s = tid; s < S; s += nt) {
-            float com = 0.0f, cnt = 0.0f;
-            for (int k = offp[s]; k < offp[s + 1]; ++k) {
-                int j = csr_p[k];
-                com = __fadd_rn(com, r[j]);
-                if (unfrozen[j]) cnt = __fadd_rn(cnt, 1.0f);
-            }
-            dp[s] = cnt > 0.0f
-                ? __fdiv_rn(fmaxf(__fsub_rn(perf[s], com), 0.0f), fmaxf(cnt, 1.0f))
-                : BIG_F;
-            com = 0.0f; cnt = 0.0f;
-            for (int k = offc[s]; k < offc[s + 1]; ++k) {
-                int j = csr_c[k];
-                com = __fadd_rn(com, r[j]);
-                if (unfrozen[j]) cnt = __fadd_rn(cnt, 1.0f);
-            }
-            dc[s] = cnt > 0.0f
-                ? __fdiv_rn(fmaxf(__fsub_rn(perf[s], com), 0.0f), fmaxf(cnt, 1.0f))
-                : BIG_F;
-        }
-        __syncthreads();
-        // per-flow increment headroom and the global increment delta
-        float m = BIG_F;
-        for (int j = tid; j < C; j += nt) {
-            float d = BIG_F;
-            if (unfrozen[j]) {
-                d = fminf(dp[prov[j]], dc[cons[j]]);
-                d = fminf(d, fmaxf(__fsub_rn(p_l[j], r[j]), 0.0f));
-            }
-            df[j] = d;
-            m = fminf(m, d);
-        }
-        float delta = block_min(m, red_f);
-        if (!(isfinite(delta) && delta < BIG_F)) delta = 0.0f;
-        float thr = __fadd_rn(__fmul_rn(delta, thr_scale), 1e-12f);
-        // raise the unfrozen flows, freeze those whose constraint bound
-        int left = 0;
-        for (int j = tid; j < C; j += nt) {
-            if (unfrozen[j]) {
-                r[j] = __fadd_rn(r[j], delta);
-                if (df[j] <= thr) unfrozen[j] = 0;
-                else ++left;
-            }
-        }
-        n_unfrozen = block_sum_int(left, red_i);
+    // ---- rank the live flows: a contiguous chunk of flows per thread ------
+    const int per = (C + nt - 1) / nt;
+    const int lo = min(tid * per, C), hi = min(lo + per, C);
+    int n = 0;
+    for (int j = lo; j < hi; ++j) n += live[j] != 0;
+    int L;
+    const int k = block_exclusive_scan(n, red_i, &L);
+    if (L == 0) {
+        for (int j = lo; j < hi; ++j) r[j] = 0.0f;
+    } else if (L <= SOLVE_SMEM_FLOWS) {
+        solve_live(carve(solve_smem, SOLVE_SMEM_FLOWS), L, k, lo, hi, prov,
+                   cons, p_l, live, perf, r, max_iters, thr_scale, red_i, red_f);
+    } else if (L <= SOLVE_HOT_FLOWS) {
+        solve_live(carve_hot(scratch, C, solve_smem), L, k, lo, hi, prov,
+                   cons, p_l, live, perf, r, max_iters, thr_scale, red_i, red_f);
+    } else {
+        solve_live(carve(scratch, C), L, k, lo, hi, prov, cons, p_l, live,
+                   perf, r, max_iters, thr_scale, red_i, red_f);
     }
 }
 
@@ -321,41 +533,15 @@ fill_plan_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
     }
 }
 
-// Committed rate and unfrozen count of one segment, added in plan order
-// (ascending flow index) from +0.0.  Indices, then flags and rates, are
-// loaded four ahead of the adds, so only the adds form a chain.
+// Headroom of segment s of a plan: the flows that are not live add +0.0.
 __device__ __forceinline__ float segment_headroom(
         const int* __restrict__ off, const int* __restrict__ csr,
         const float* __restrict__ r, const uint8_t* __restrict__ live,
         const uint8_t* __restrict__ unfrozen, float perf, int s) {
-    const int e = off[s + 1];
-    int k = off[s];
-    float com = 0.0f;
-    int cnt = 0;
-    for (; k + 4 <= e; k += 4) {
-        int j[4];
-        float v[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) j[u] = csr[k + u];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-            float rv = r[j[u]];
-            v[u] = live[j[u]] ? rv : 0.0f;
-            cnt += unfrozen[j[u]];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) com = __fadd_rn(com, v[u]);
-    }
-    for (; k < e; ++k) {
-        int j = csr[k];
-        float rv = r[j];
-        com = __fadd_rn(com, live[j] ? rv : 0.0f);
-        cnt += unfrozen[j];
-    }
-    // the count is an integer below 2**24: its f32 sum is exact
-    const float c = (float)cnt;
-    return cnt > 0 ? __fdiv_rn(fmaxf(__fsub_rn(perf, com), 0.0f), fmaxf(c, 1.0f))
-                   : BIG_F;
+    return segment_walk(
+        off[s], off[s + 1], perf, [csr](int k) { return csr[k]; },
+        [r, live](int j) { return live[j] ? r[j] : 0.0f; },
+        [unfrozen](int j) { return (int)unfrozen[j]; });
 }
 
 // One round's per-spreader headroom over a plan: one thread per spreader
@@ -375,20 +561,35 @@ fill_round_kernel(const int* __restrict__ offp, const int* __restrict__ csrp,
     dc[s] = segment_headroom(offc, csrc, r, live, unfrozen, pf, s);
 }
 
+// Bytes of global scratch a solve of C flows needs: the arrays of all C
+// flows when more than SOLVE_SMEM_FLOWS of them could be live, else none.
+extern "C" size_t maxmin_solve_scratch_bytes(int C) {
+    return C > SOLVE_SMEM_FLOWS ? solve_arrays_bytes(C) : 0;
+}
+
+#define MAX_DEVICES 64
+
 extern "C" int maxmin_solve_launch(const int* prov, const int* cons,
                                    const float* p_l, const uint8_t* live,
-                                   const float* perf, float* r, float* df,
-                                   uint8_t* unfrozen, int* csr_p, int* csr_c,
-                                   int C, int S, int max_iters,
-                                   float thr_scale, void* stream) {
-    size_t smem = maxmin_solve_smem_bytes(S);
-    cudaError_t err = cudaFuncSetAttribute(
-        maxmin_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+                                   const float* perf, float* r, char* scratch,
+                                   int C, int max_iters, float thr_scale,
+                                   void* stream) {
+    // the shared-memory opt-in is a property of the function on a device:
+    // set it once per device, not at every launch
+    static bool opted_in[MAX_DEVICES] = {};
+    const size_t smem = solve_arrays_bytes(SOLVE_SMEM_FLOWS);
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES || !opted_in[dev]) {
+        err = cudaFuncSetAttribute(
+            maxmin_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        if (dev < MAX_DEVICES) opted_in[dev] = true;
+    }
     maxmin_solve_kernel<<<1, SOLVE_THREADS, smem, (cudaStream_t)stream>>>(
-        prov, cons, p_l, live, perf, r, df, unfrozen, csr_p, csr_c, C, S,
-        max_iters, thr_scale);
+        prov, cons, p_l, live, perf, r, scratch, C, max_iters, thr_scale);
     return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Each source under ``repro_torch/csrc/`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with :mod:`ctypes`.  The build
 happens at first use, into ``build/repro_torch_kernels/`` at the repository
 root (listed in ``.gitignore``); a library's file name carries a hash of its
-source and flags, so an edited source is rebuilt.  :func:`build_all` starts
+source, the shared headers (``csrc/*.cuh``) and its flags, so an edited
+source or header is rebuilt.  :func:`build_all` starts
 one ``nvcc`` per source at once and waits for all of them.
 """
 from __future__ import annotations
@@ -50,7 +51,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers go into every source's hash
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -6,6 +6,12 @@ A CUDA tensor launches the hand-written kernel (or the wrapper raises); a
 CPU tensor runs the plain PyTorch version, which computes what
 ``repro/kernels/ref.py`` ``masked_min_ref`` computes.  The result is a 0-d
 tensor on the input's device: the engine never reads it back to the host.
+Up to ``SINGLE_BLOCK_LANES`` lanes the kernel runs one block; a longer
+vector runs a grid whose ticket and partial minima sit in a workspace of
+``WORKSPACE_BYTES`` that the wrapper allocates for that call alone, so the
+kernel holds no state between calls.  The source also holds an empty kernel
+behind a launch function of the same signature (``empty_launch``), which
+``chip_smoke.py`` times as the launch floor of this ``ctypes`` path.
 """
 from __future__ import annotations
 
@@ -14,9 +20,13 @@ import ctypes
 import torch
 
 from . import _build
-from .maxmin import _route
+from .maxmin import _route, _stream
 
 BIG = 3.0e38
+# csrc/horizon.cu: lanes one block takes, and the grid path's workspace (a
+# ticket and one partial minimum for each of at most 264 blocks)
+SINGLE_BLOCK_LANES = 65536
+WORKSPACE_BYTES = 4 * (1 + 264)
 
 
 def masked_min_plain(cand: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -27,15 +37,20 @@ def masked_min_plain(cand: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def _lib():
     lib = _build.load("horizon")
     if not getattr(lib, "_typed", False):
-        lib.masked_min_launch.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_void_p]
-        lib.masked_min_launch.restype = ctypes.c_int
+        for fn in (lib.masked_min_launch, lib.empty_launch):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
 def masked_min(cand: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Scalar ``min(cand[mask])``, ``BIG`` (3e38) when the mask is empty."""
+    """Scalar ``min(cand[mask])``, ``BIG`` (3e38) when the mask is empty.
+    An empty vector has no minimum: it raises ``ValueError`` on either
+    device."""
+    if cand.numel() == 0:
+        raise ValueError("masked_min: empty input (the min has no identity)")
     if not _route(cand, "masked_min"):
         return masked_min_plain(cand, mask)
     if mask.device != cand.device:
@@ -53,10 +68,14 @@ def masked_min(cand: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     n = cand.shape[0]
     if n >= 2 ** 31:
         raise ValueError("masked_min: length exceeds int32 indexing")
-    out = torch.empty((), dtype=torch.float32, device=cand.device)
-    err = _lib().masked_min_launch(
-        cand.data_ptr(), mask.data_ptr(), out.data_ptr(), n,
-        torch.cuda.current_stream(cand.device).cuda_stream)
+    out = cand.new_empty(())   # a fresh f32 scalar on cand's device
+    # the grid path's ticket and partials: this call's own workspace
+    ws = (cand.new_empty((WORKSPACE_BYTES // 4,))
+          if n > SINGLE_BLOCK_LANES else None)
+    err = _lib().masked_min_launch(cand.data_ptr(), mask.data_ptr(),
+                                   out.data_ptr(),
+                                   None if ws is None else ws.data_ptr(), n,
+                                   _stream(cand.device))
     if err != 0:
         raise RuntimeError(f"masked_min: kernel launch failed with CUDA "
                            f"error {err}")

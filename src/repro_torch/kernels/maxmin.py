@@ -12,21 +12,26 @@ The kernel adds every segmented sum serially in ascending flow index, as
 version does (built with ``-fmad=false``, no fast math), so the card's rates
 equal the CPU's bit for bit.
 
-Size gate: the solve keeps ``perf``, the two headroom vectors and the two
-CSR offset vectors of all ``S`` spreaders in one block's shared memory,
-``20 * S + 8`` bytes beside 256 static bytes, within the 227 KB a Hopper
-block may use: ``S <= MAX_SOLVE_S`` (11,609).  The flows stay in global
-memory (L2), so the flow count is not limited.  Above the gate the engine
-runs the rounds from the host (:func:`progressive_filling`): one
-:func:`fill_plan` per solve, a stable CSR of the flows by provider and by
-consumer, then one :func:`fill_round` per round, which walks each
-spreader's two segments.  The public :func:`fill_stats` is the two in one
-call.  Dropping the flows outside the plan is exact (``csrc/maxmin.cu``
-says why), so every path equals ``ref.fill_stats_ref`` bit for bit.
+The solve works on the live flows only: one block compacts them, groups
+them by provider and by consumer with a sort, and runs every round over the
+touched spreaders and the live flows, in shared memory up to
+``SOLVE_SMEM_FLOWS`` live flows and in one global workspace above (with
+the arrays read at scattered places still in shared memory up to
+``SOLVE_HOT_FLOWS``).  Its
+work follows the live flows, not ``S``.  The engine routes by the size gate
+``MAX_SOLVE_S`` (11,609 spreaders): the most that an earlier design of the
+solve held in shared memory, kept as a routing constant.  Above the gate
+the engine runs the rounds from the host (:func:`progressive_filling`): one :func:`fill_plan` per solve, a
+stable CSR of the flows by provider and by consumer, then one
+:func:`fill_round` per round, which walks each spreader's two segments.
+The public :func:`fill_stats` is the two in one call.  Dropping the flows
+outside the plan is exact (``csrc/maxmin.cu`` says why), so every path
+equals ``ref.fill_stats_ref`` bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,16 +41,17 @@ from . import _build
 
 BIG = 3.0e38
 SMEM_LIMIT = 232_448      # bytes of shared memory one Hopper block may use
-STATIC_SMEM = 256         # the solve kernel's static reduction scratch
-
-
-def solve_smem_bytes(n_spreaders: int) -> int:
-    """Dynamic shared memory of one solve: perf, dp, dc [S] f32 and the two
-    CSR offset vectors [S+1] i32."""
-    return 12 * n_spreaders + 8 * (n_spreaders + 1)
-
-
-MAX_SOLVE_S = (SMEM_LIMIT - STATIC_SMEM - 8) // 20
+STATIC_SMEM = 256         # a kernel's static reduction scratch
+# live flows whose arrays the solve keeps in shared memory (csrc/maxmin.cu
+# SOLVE_SMEM_FLOWS); above it they go to the global workspace
+SOLVE_SMEM_FLOWS = 1024
+# live flows whose rates, flags and headroom stay in shared memory when the
+# rest of their arrays are in the workspace (csrc/maxmin.cu SOLVE_HOT_FLOWS)
+SOLVE_HOT_FLOWS = 5120
+# the solve sorts a power of two of keys at least the flow count
+MAX_SOLVE_C = 2 ** 30
+# the routing gate: the fused solve up to here, the round-wise path above
+MAX_SOLVE_S = 11_609
 # the plan kernel stages 4096 flows' two segment ids (32 KB) in shared
 # memory, and keeps its two [S+1] count vectors there up to here, in global
 # scratch above
@@ -70,8 +76,8 @@ class FillPlan(NamedTuple):
 
 
 def solve_fits(n_flows: int, n_spreaders: int) -> bool:
-    """True when the fused solve's shared-memory footprint fits one block."""
-    del n_flows   # the flows live in global memory
+    """True below the size gate, where the engine takes the fused solve."""
+    del n_flows   # the solve's live flows spill to a global workspace
     return n_spreaders <= MAX_SOLVE_S
 
 
@@ -194,9 +200,11 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("maxmin")
     if not getattr(lib, "_typed", False):
-        lib.maxmin_solve_launch.argtypes = [_P] * 10 + [_I, _I, _I,
-                                                        ctypes.c_float, _P]
+        lib.maxmin_solve_launch.argtypes = [_P] * 7 + [_I, _I, ctypes.c_float,
+                                                       _P]
         lib.maxmin_solve_launch.restype = _I
+        lib.maxmin_solve_scratch_bytes.argtypes = [_I]
+        lib.maxmin_solve_scratch_bytes.restype = ctypes.c_size_t
         lib.fill_plan_launch.argtypes = [_P] * 9 + [_I, _I, _P]
         lib.fill_plan_launch.restype = _I
         lib.fill_round_launch.argtypes = [_P] * 10 + [_I, _P]
@@ -223,18 +231,37 @@ def _check(name: str, device, C: int, S: int, **tensors):
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on ``device`` (the current
+    device when it names no index), read without building a
+    ``torch.cuda.Stream`` object."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
     """True for the kernel (CUDA tensor), False for the plain version (CPU
     tensor); any other device raises."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise ValueError(f"{name}: no kernel or plain version for device "
                      f"{t.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _thr_scale(rel_eps: float) -> float:
+    """``1 + rel_eps`` rounded to f32, as the plain version's product
+    rounds it."""
+    return float(np.float32(1.0 + rel_eps))
+
+
+@functools.lru_cache(maxsize=None)
+def solve_scratch_bytes(n_flows: int) -> int:
+    """Bytes of the solve's global workspace for ``n_flows`` flows (0 when
+    all of them fit in shared memory)."""
+    return int(_lib().maxmin_solve_scratch_bytes(n_flows))
 
 
 def maxmin_solve(provider, consumer, p_l, live, perf, *,
@@ -242,7 +269,7 @@ def maxmin_solve(provider, consumer, p_l, live, perf, *,
     """Max-min fair rates by progressive filling, solved in one launch.
 
     Provider and consumer indices must lie in ``[0, S)``.  Guard call sites
-    with :func:`solve_fits`."""
+    with :func:`solve_fits`.  Returns a fresh ``r`` [C] each call."""
     if not _route(provider, "maxmin_solve"):
         return maxmin_solve_plain(provider, consumer, p_l, live, perf,
                                   max_iters=max_iters, rel_eps=rel_eps)
@@ -254,19 +281,23 @@ def maxmin_solve(provider, consumer, p_l, live, perf, *,
            p_l=(p_l, torch.float32, C), live=(live, torch.bool, C),
            perf=(perf, torch.float32, S))
     if not solve_fits(C, S):
-        raise ValueError(f"maxmin_solve: S={S} spreaders exceed the "
-                         f"shared-memory gate MAX_SOLVE_S={MAX_SOLVE_S}")
+        raise ValueError(f"maxmin_solve: S={S} spreaders lie above the "
+                         f"routing gate MAX_SOLVE_S={MAX_SOLVE_S}; the "
+                         f"engine takes progressive_filling there")
+    if C >= MAX_SOLVE_C:
+        raise ValueError(f"maxmin_solve: C={C} flows exceed the sort's "
+                         f"limit MAX_SOLVE_C={MAX_SOLVE_C}")
     r = torch.empty((C,), dtype=torch.float32, device=dev)
-    df = torch.empty((C,), dtype=torch.float32, device=dev)
-    unfrozen = torch.empty((C,), dtype=torch.uint8, device=dev)
-    csr_p = torch.empty((C,), dtype=torch.int32, device=dev)
-    csr_c = torch.empty((C,), dtype=torch.int32, device=dev)
-    thr_scale = float(np.float32(1.0 + rel_eps))
+    n_scratch = solve_scratch_bytes(C)
+    # one workspace, carved by the kernel, only when the live flows may
+    # outgrow shared memory
+    scratch = (torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
+               if n_scratch else None)
     err = _lib().maxmin_solve_launch(
         provider.data_ptr(), consumer.data_ptr(), p_l.data_ptr(),
-        live.data_ptr(), perf.data_ptr(), r.data_ptr(), df.data_ptr(),
-        unfrozen.data_ptr(), csr_p.data_ptr(), csr_c.data_ptr(),
-        C, S, int(max_iters), thr_scale, _stream(dev))
+        live.data_ptr(), perf.data_ptr(), r.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), C, int(max_iters),
+        _thr_scale(rel_eps), _stream(dev))
     if err != 0:
         raise RuntimeError(f"maxmin_solve: kernel launch failed with CUDA "
                            f"error {err}")

@@ -119,12 +119,15 @@ def test_maxmin_solve_max_iters_caps_rounds():
 
 
 def test_solve_gate_is_set_by_shared_memory():
-    """The gate is the largest S whose solve footprint fits one block."""
+    """The gate is the largest S whose footprint in the solve's first design
+    (perf, dp, dc [S] f32 and two [S+1] i32 offset vectors) fit one block's
+    shared memory; the live-flow solve keeps it as a routing constant."""
     S = maxmin.MAX_SOLVE_S
-    assert (maxmin.solve_smem_bytes(S) + maxmin.STATIC_SMEM
-            <= maxmin.SMEM_LIMIT)
-    assert (maxmin.solve_smem_bytes(S + 1) + maxmin.STATIC_SMEM
-            > maxmin.SMEM_LIMIT)
+
+    def footprint(n):
+        return 12 * n + 8 * (n + 1) + maxmin.STATIC_SMEM
+
+    assert footprint(S) <= maxmin.SMEM_LIMIT < footprint(S + 1)
     assert maxmin.solve_fits(10 ** 6, S) and not maxmin.solve_fits(8, S + 1)
     # the main path's full-width cloud (500 PM x 4096 VM) lies below it
     assert maxmin.solve_fits(4596, 4 * 500 + 2 + 4096)
