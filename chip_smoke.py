@@ -20,29 +20,49 @@ Phases, each of which raises on failure (nothing is caught):
    grid-path calls in flight on two streams; for both, the device time
    alone (a CUDA graph of 100 calls), the wrapper's host time (a host
    clock over 1000 enqueues, median of 5) and the launch floor (an empty
-   kernel through the same ctypes path, timed all three ways); fill_stats
-   also as the
+   kernel through the same ctypes path, timed all three ways); the main
+   path's rows at the shapes of the compacted full-width pass (C = S =
+   2048, N = 4600), captured from it and held bit for bit against the CPU
+   plain version, with the dense cell's shapes (C = 4596, S = 6098, N =
+   9696) beside them; fill_stats also as the
    main path runs it, one round on a plan built once (its time, the plan's,
-   the public call's, and both kernels' device time alone from a CUDA
-   graph), bit-equal to the CPU plain version, with the longest segment;
+   the public call's, the wrapper's host time, and both kernels' device
+   time alone from a CUDA graph), bit-equal to the CPU plain version, with
+   the longest segment;
 4. the main path at full width: 500 PM x 4096 VM under 2000 DAS-2-like
-   tasks (the largest row of the repository's throughput grid), with the
-   kernels' launch counters set to 0 just before and read just after, and
-   each solve's live-flow count summed on the device (live_flows_max and
-   live_flows_hist, binned by the solve's code path); then a cloud above the fused solve's size gate, which runs the
-   round-wise fill_stats path, counted the same way;
-5. cross-check: 20 PM x 1024 VM under 200 tasks twice on the card (the two
-   runs must be bit-identical) and once on the CPU (exact integers and
-   event counts, floats within rtol 1e-5 / atol 1e-6); then a shorter
-   full-width run and the above-gate cell under torch.profiler: device
-   idle share, device time of each hand-written kernel, kernel launches
-   and host reads per pass;
+   tasks (the largest row of the repository's throughput grid), compacted
+   (bucket 2048, the reference's auto bucket given explicitly: full_width)
+   and under the auto rule, which runs dense on the card
+   (full_width_dense), on the same trace, which must agree in events,
+   completions, rejections and every reading bit for bit; then a cloud
+   above the fused solve's size gate, which runs the round-wise fill_stats
+   path; then the migrating cell (migrating_full_width: the same cloud and
+   trace under pm_sched="consolidate" at the reference's idle fraction
+   0.6, max_migrations 4, bucket 2048), which must migrate at least once
+   and finish every task.  Migrations are counted after each run from the
+   state (the NIC-out spreaders' processed work over the VM's memory
+   size, which must come to whole migrations, none in flight at the end).
+   Each cell has the kernels' launch counters set to 0 just before and
+   read just after, each solve's live-flow count summed on the device
+   (live_flows_max and live_flows_hist, binned by the solve's code path),
+   and no compaction bucket may overflow;
+5. cross-check: 20 PM x 1024 VM under 200 tasks (bucket 128), under
+   alwayson and again under evacuate (which must migrate), each twice on
+   the card (the two runs must be bit-identical) and once on the CPU
+   (exact integers and event counts, floats within rtol 1e-5 / atol
+   1e-6); then the full-width cell at 300 tasks, compacted and dense, and
+   the above-gate cell at 100 tasks under torch.profiler, summarised from
+   the trace's raw events: device idle share, device time of each
+   hand-written kernel, events/s, kernel launches and host reads per pass
+   (the compacted pass may not read the host more often than the dense
+   one);
 6. LM kernels: flash_attention and linear_scan against their plain
    versions on random cases covering every feature (f32 on the CUDA-core
    kernel, bf16 on the tensor-core one, each with its own tile shape and
    visited-tile count) and at the Jamba hybrid's full-width shapes, timed
    beside the plain version, the bound and (flash) PyTorch's
-   scaled_dot_product_attention;
+   scaled_dot_product_attention, with the device time alone and the
+   wrapper's host time;
 7. the Jamba hybrid LM at full width, cut from 32 to 16 layers to fit in
    HBM: lm.forward over 4096 tokens (lm_forward_full_width), then a
    ServeEngine batch of 4 prompts of 384-512 tokens with 32 new tokens each
@@ -198,11 +218,13 @@ def flow_inputs(C: int, S: int, seed: int, dev):
     return host, [x.to(dev) for x in host]
 
 
-def capture(n_pm: int, n_vm: int, n_tasks: int) -> dict:
+def capture(n_pm: int, n_vm: int, n_tasks: int, compact: int = -1) -> dict:
     """Run a DAS-2-like cell on the card and keep the kernel inputs of its
     busiest pass (the most live flows): the fair-share problem, the first
-    fill_stats round of it, and the horizon vector.  The recorders wrap the
-    engine's call sites for this run only."""
+    fill_stats round of it, and the horizon vector.  ``compact`` is the
+    spec's compaction setting (0 dense, > 0 a bucket; auto runs dense on
+    the card).  The recorders wrap the engine's call sites for this run
+    only."""
     from repro_torch.core import engine, fairshare
     from repro_torch.core.loop import advance
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
@@ -224,7 +246,7 @@ def capture(n_pm: int, n_vm: int, n_tasks: int) -> dict:
 
     trace = filter_fitting(gwa_like_trace("das2", n_tasks, seed=7), 64.0)
     spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
-                                     pm_sched="ondemand",
+                                     pm_sched="ondemand", compact=compact,
                                      max_events=4_000_000)
     fairshare.SCHEDULERS["maxmin"], advance.masked_min = rates, horizon
     try:
@@ -262,9 +284,14 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
 
     records, checks = {}, {}
     C, S = 4596, 6098                 # 500 PM x 4096 VM: F = V+P, S = 4P+2+V
-    main = capture(500, 4096, n_capture)
+    FB = 2048                         # its compaction bucket, next_pow2(4P+32)
+    main = capture(500, 4096, n_capture, compact=0)
+    comp = capture(500, 4096, n_capture, compact=FB)  # compacted
     above = capture(1500, 8192, 30)   # S = 14194: the round-wise path
-    checks["captured_live_flows"] = {"full_width": main["live"],
+    assert [x.shape[0] for x in main["solve"]] == [C] * 4 + [S]
+    assert [x.shape[0] for x in comp["solve"]] == [FB] * 5
+    checks["captured_live_flows"] = {"full_width_dense": main["live"],
+                                     "full_width": comp["live"],
                                      "above_gate": above["live"]}
 
     def rounds_of(args, max_iters=64):
@@ -284,7 +311,9 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     (prov, cons, p_l, live, perf, _, _), dv = flow_inputs(C, S, 0, dev)
     cases = {"random": ((prov, cons, p_l, live, perf), dv[:5], 64),
              "captured": (tuple(x.cpu() for x in main["solve"]),
-                          main["solve"], 64)}
+                          main["solve"], 64),
+             "captured_compacted": (tuple(x.cpu() for x in comp["solve"]),
+                                    comp["solve"], 64)}
     for case in solve_cases():
         host = tuple(torch.from_numpy(x) for x in case.args())
         cases[case.label] = (host, tuple(x.to(dev) for x in host),
@@ -311,15 +340,31 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
             live=int(host[3].sum()), rounds=n_rounds, max_iters=iters,
             max_abs_err=max_abs_err(g, w), bit_equal_to_cpu_plain=True,
             round_wise_bit_equal=True)
-    n_live, n_rounds = (checks["maxmin_solve_captured"][k]
-                        for k in ("live", "rounds"))
-    dargs = main["solve"]
-    hp, hc, _, hl, _ = (x.cpu() for x in dargs)
-    # the bound counts what these inputs need: live read, r written, each
-    # live flow's provider, consumer and p_l, each touched spreader's perf
-    touched = int(torch.unique(torch.cat([hp[hl], hc[hl]])).numel())
-    runs = int(torch.unique(hp[hl]).numel() + torch.unique(hc[hl]).numel())
     floor = launch_floor(dev)
+
+    def solve_timing(label):
+        """Times and the bound of the solve on a captured pass: the bound
+        counts what these inputs need (live read, r written, each live
+        flow's provider, consumer and p_l, each touched spreader's perf)."""
+        n_live, n_rounds = (checks[f"maxmin_solve_{label}"][k]
+                            for k in ("live", "rounds"))
+        dargs = cases[label][1]
+        hp, hc, _, hl, _ = (x.cpu() for x in dargs)
+        c, s = dargs[0].shape[0], dargs[4].shape[0]
+        touched = int(torch.unique(torch.cat([hp[hl], hc[hl]])).numel())
+        runs = int(torch.unique(hp[hl]).numel()
+                   + torch.unique(hc[hl]).numel())
+        return dict(
+            shape=f"C={c} S={s} live={n_live} rounds={n_rounds} touched "
+                  f"spreaders={touched} (busiest captured pass)",
+            ms=time_ms(lambda: maxmin.maxmin_solve(*dargs)),
+            device_ms=graph_ms(lambda: maxmin.maxmin_solve(*dargs)),
+            host_us=host_us(lambda: maxmin.maxmin_solve(*dargs)),
+            plain_ms=time_ms(lambda: maxmin.maxmin_solve_plain(*dargs),
+                             n=50, warmup=3),
+            bytes=c + 4 * c + 12 * n_live + 4 * touched,
+            ops=n_rounds * (10 * n_live + 3 * runs))
+
     # the general side of the solve (block sort, named barriers, the global
     # workspace), timed on cases with more than 32 live flows
     general = {}
@@ -334,19 +379,13 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
             live=checks[f"maxmin_solve_{label}"]["live"],
             rounds=checks[f"maxmin_solve_{label}"]["rounds"],
             ms=time_ms(call, n=20, warmup=3), device_ms=graph_ms(call, n=20))
+    # the main path's shapes are the compacted ones; the dense cell's
+    # shapes are kept beside them
     records["maxmin_solve"] = dict(
-        shape=f"C={C} S={S} live={n_live} rounds={n_rounds} "
-              f"touched spreaders={touched} (busiest captured pass)",
+        solve_timing("captured_compacted"),
         max_abs_err=max(checks[f"maxmin_solve_{k}"]["max_abs_err"]
                         for k in cases),
-        ms=time_ms(lambda: maxmin.maxmin_solve(*dargs)),
-        device_ms=graph_ms(lambda: maxmin.maxmin_solve(*dargs)),
-        host_us=host_us(lambda: maxmin.maxmin_solve(*dargs)),
-        plain_ms=time_ms(lambda: maxmin.maxmin_solve_plain(*dargs),
-                         n=50, warmup=3),
-        bytes=C + 4 * C + 12 * n_live + 4 * touched,
-        ops=n_rounds * (10 * n_live + 3 * runs), general_cases=general,
-        **floor)
+        dense=solve_timing("captured"), general_cases=general, **floor)
 
     # ---- fill_stats: random at both shapes, and the captured first round
     # of the above-gate cell's busiest pass; the public call (plan from
@@ -407,6 +446,7 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
         graph_ms=graph_ms(lambda: maxmin.fill_round(plan, *dcap[2:])),
         plan_graph_ms=graph_ms(lambda: maxmin.fill_plan(
             dcap[0], dcap[1], dcap[3], None, s)),
+        host_us=host_us(lambda: maxmin.fill_round(plan, *dcap[2:])),
         plain_ms=time_ms(lambda: maxmin.fill_stats_plain(*dcap)),
         longest_segment=plan.longest_segment(),
         plan_flows=int(plan.off_p[-1]),
@@ -418,9 +458,13 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     cand = torch.from_numpy((rng.randn(N) * 100).astype(np.float32))
     mask = torch.from_numpy(rng.rand(N) < 0.6)
     dcand, dmask = main["horizon"]
+    ccand, cmask = comp["horizon"]
+    NB = 2 * FB + 500 + 4             # the compacted pass's horizon vector
     assert dcand.shape == (N,), dcand.shape
+    assert ccand.shape == (NB,), ccand.shape
     edge = [("random main shape", cand, mask),
-            ("captured busiest pass", dcand.cpu(), dmask.cpu())]
+            ("captured busiest pass", dcand.cpu(), dmask.cpu()),
+            ("captured compacted pass", ccand.cpu(), cmask.cpu())]
     for n in (1, 3, 7, 277, 1023, 1024, 1025, 2047, 2048, 2049, 5000):
         rs = np.random.RandomState(n)
         c = torch.from_numpy((rs.randn(n) * 50).astype(np.float32))
@@ -500,13 +544,19 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
         raise AssertionError("masked_min accepted an empty vector")
     torch.cuda.synchronize()
     checks["masked_min_cases"] = len(edge) + len(views) + len(pair) + 2
-    records["masked_min"] = dict(
-        shape=f"N={N} (busiest captured pass)", max_abs_err=0.0,
-        ms=time_ms(lambda: horizon.masked_min(dcand, dmask)),
-        device_ms=graph_ms(lambda: horizon.masked_min(dcand, dmask)),
-        host_us=host_us(lambda: horizon.masked_min(dcand, dmask)),
-        plain_ms=time_ms(lambda: horizon.masked_min_plain(dcand, dmask)),
-        bytes=5 * N + 4, ops=2 * N, **floor)
+
+    def min_timing(c, m):
+        n = c.shape[0]
+        return dict(
+            shape=f"N={n} (busiest captured pass)",
+            ms=time_ms(lambda: horizon.masked_min(c, m)),
+            device_ms=graph_ms(lambda: horizon.masked_min(c, m)),
+            host_us=host_us(lambda: horizon.masked_min(c, m)),
+            plain_ms=time_ms(lambda: horizon.masked_min_plain(c, m)),
+            bytes=5 * n + 4, ops=2 * n)
+
+    records["masked_min"] = dict(min_timing(ccand, cmask), max_abs_err=0.0,
+                                 dense=min_timing(dcand, dmask), **floor)
     return records, checks
 
 
@@ -518,71 +568,109 @@ OUR_KERNELS = ("maxmin_solve_kernel", "fill_plan_kernel", "fill_round_kernel",
 
 def profiled(fn) -> tuple:
     """Run ``fn`` under torch.profiler; returns its result and a summary:
-    wall, device busy and idle share, kernel launches, host reads, the top
-    host ops and device kernels."""
+    wall, device busy and idle share, kernel launches, host reads, the
+    host ops and device kernels that take the most time.  The summary is
+    counted from the trace's raw events in one pass; the profiler's
+    per-event post-processing (``key_averages``) takes minutes at a few
+    hundred thousand launches."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
+    from torch.autograd import profiler as autograd_profiler
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    # device rows only: a host op's self device time repeats the time of
-    # the kernels it launched
-    device_us = sum(e.self_device_time_total for e in avg
-                    if e.device_type == DeviceType.CUDA)
-    calls = {e.key: e.count for e in avg}
-    top = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    top_dev = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total,
-                     reverse=True)[:8]
+    # Versions that build the per-event records on leaving the context get
+    # none: nothing here reads them.
+    parse0 = autograd_profiler.profile._parse_kineto_results
+    autograd_profiler.profile._parse_kineto_results = lambda self, res: []
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        autograd_profiler.profile._parse_kineto_results = parse0
+    t1 = time.perf_counter()
+    host_n, host_ms, dev_n, dev_ms = Counter(), Counter(), Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        name, ms = e.name(), e.duration_ns() / 1e6
+        if e.device_type() == DeviceType.CUDA:
+            dev_n[name] += 1
+            dev_ms[name] += ms
+        else:
+            host_n[name] += 1
+            host_ms[name] += ms
+    busy_s = sum(dev_ms.values()) / 1e3
+    launches = sum(n for k, n in host_n.items() if "LaunchKernel" in k)
+    assert launches > 0 and busy_s > 0, "no device work in the profiled run"
     ours = {}
-    for e in avg:
-        words = e.key.split("(")[0].split("<")[0].split()
-        if (e.device_type == DeviceType.CUDA and words
-                and words[-1] in OUR_KERNELS):
-            name = words[-1]
-            n, ms = ours.get(name, (0, 0.0))
-            ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
+    for name, n in dev_n.items():
+        words = name.split("(")[0].split("<")[0].split()
+        if words and words[-1] in OUR_KERNELS:
+            k0, ms0 = ours.get(words[-1], (0, 0.0))
+            ours[words[-1]] = (k0 + n, ms0 + dev_ms[name])
+
+    def top(n, ms, k):
+        return [(key[:80], n[key], v) for key, v in ms.most_common(k)]
+
     return out, dict(
-        wall_s=wall, device_busy_s=device_us / 1e6,
-        our_kernels_count_ms=ours,
-        device_idle_share=1.0 - device_us / 1e6 / wall,
-        kernel_launches=sum(n for k, n in calls.items()
-                            if "LaunchKernel" in k),
-        host_reads=calls.get("aten::_local_scalar_dense", 0),
-        top_self_cpu_ms=[(e.key, e.count, e.self_cpu_time_total / 1e3)
-                         for e in top],
-        top_device_ms=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
-                       for e in top_dev])
+        wall_s=wall, device_busy_s=busy_s, our_kernels_count_ms=ours,
+        device_idle_share=1.0 - busy_s / wall, kernel_launches=launches,
+        host_reads=host_n["aten::_local_scalar_dense"],
+        # inclusive host time by op name (an op's children count again)
+        top_host_ms=top(host_n, host_ms, 10),
+        top_device_ms=top(dev_n, dev_ms, 8),
+        aten_ops={k: n for k, n in host_n.items() if k.startswith("aten::")},
+        device_kernels=dict(dev_n),
+        summary_s=time.perf_counter() - t1)
 
 
-def profile_phase(n_tasks: int) -> dict:
-    """A full-width run cut to ``n_tasks`` and the above-gate cell (its main
-    path's 100 tasks) under torch.profiler: device busy and idle share,
-    device time of each hand-written kernel, kernel launches and host reads
-    per pass, the top host-side ops."""
+def profile_phase(n_tasks: int, n_above: int) -> dict:
+    """The full-width cell cut to ``n_tasks``, compacted (bucket 2048) and
+    dense (auto on the card), and the above-gate cell cut to ``n_above``
+    tasks, under torch.profiler: device busy and idle share, device time
+    of each hand-written kernel, events/s, kernel launches and host reads
+    per pass, the top host-side ops.  Compaction may read the host no more
+    often a pass than the dense run."""
     from repro_torch.core import engine
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
     out = {}
-    for name, n_pm, n_vm, tasks in (("full_width", 500, 4096, n_tasks),
-                                    ("above_gate", 1500, 8192, 100)):
+    for name, n_pm, n_vm, tasks, compact in (
+            ("full_width", 500, 4096, n_tasks, 2048),
+            ("full_width_dense", 500, 4096, n_tasks, -1),
+            ("above_gate", 1500, 8192, n_above, -1)):
         trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
         spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
-                                         pm_sched="ondemand",
+                                         pm_sched="ondemand", compact=compact,
                                          max_events=4_000_000)
         (res, _), prof = profiled(lambda: run(spec, trace, params, "cuda"))
         events = int(res.n_events)
         out[name] = dict(tasks=int(trace.n), events=events, **prof,
+                         events_per_s=events / prof["wall_s"],
                          kernel_launches_per_pass=prof["kernel_launches"]
                          / events,
                          host_reads_per_pass=prof["host_reads"] / events)
-        print(json.dumps({f"profile_{name}": out[name]}))
+        print(json.dumps({f"profile_{name}": {
+            k: v for k, v in out[name].items()
+            if k not in ("aten_ops", "device_kernels")}}))
+    a, b = out["full_width"], out["full_width_dense"]
+    assert a["events"] == b["events"], (a["events"], b["events"])
+    # what compaction adds a pass, by aten op and by device kernel
+    for key in ("aten_ops", "device_kernels"):
+        extra = {k: (a[key].get(k, 0) - b[key].get(k, 0)) / a["events"]
+                 for k in set(a[key]) | set(b[key])}
+        out[f"compaction_extra_{key}_per_pass"] = sorted(
+            ((k, v) for k, v in extra.items() if v), key=lambda x: -abs(x[1]))
+    print(json.dumps({k: [(n[:100], v) for n, v in rows[:12]]
+                      for k, rows in out.items()
+                      if k.startswith("compaction_extra")}))
+    assert a["host_reads_per_pass"] <= b["host_reads_per_pass"], (
+        "compaction reads the host more often than the dense pass",
+        a["host_reads_per_pass"], b["host_reads_per_pass"])
     return out
 
 
@@ -609,26 +697,58 @@ def live_histogram(counts: np.ndarray) -> dict:
             for lo, hi in LIVE_BINS}
 
 
+def _bits(readings: dict) -> dict:
+    return {k: v.cpu().numpy().tobytes() for k, v in readings.items()}
+
+
+# name, PMs, VMs, tasks (None: --tasks), PM policy, spec.compact, bucket.
+# The auto rule (-1) runs dense on the card; 2048 is the reference's auto
+# bucket for this cloud, next_pow2(4P + 32), given explicitly.
+MAIN_CELLS = (
+    ("full_width", 500, 4096, None, "ondemand", 2048, 2048),
+    ("full_width_dense", 500, 4096, None, "ondemand", -1, 0),
+    # S = 4P + 2 + V = 14194 > MAX_SOLVE_S: the round-wise path
+    ("above_gate", 1500, 8192, 100, "ondemand", -1, 0),
+    # the reference default consolidate_idle_frac = 0.6
+    ("migrating_full_width", 500, 4096, None, "consolidate", 2048, 2048),
+)
+
+
+def migrations_done(spec, params, st) -> float:
+    """Completed live migrations, read from the state after the run: only
+    a migration's flow has a NIC-out spreader as its provider, and each
+    moves the VM's memory (``vm_mem_mb``) once."""
+    lay = spec.layout
+    nic = st.processed[lay.netout0:lay.netout0 + spec.n_pm]
+    return float(nic.double().sum()) / float(params.vm_mem_mb)
+
+
 def main_path(n_tasks: int) -> dict:
+    """The full-width cell compacted (bucket 2048) and dense (the auto rule
+    on the card) on one trace, the above-gate cell, and the migrating
+    full-width cell, each with the launch counters set to 0 just before
+    and read just after."""
+    import warnings
+
     from repro_torch import kernels
     from repro_torch.core import engine, fairshare
+    from repro_torch.core import machine as mc
+    from repro_torch.core.loop import compact as cpk
     from repro_torch.core.loop.state import TASK_DONE, TASK_REJECTED
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
-    out = {}
-    cells = (
-        ("full_width", 500, 4096, n_tasks),
-        # S = 4P + 2 + V = 14194 > MAX_SOLVE_S: the round-wise path
-        ("above_gate", 1500, 8192, 100),
-    )
-    for name, n_pm, n_vm, tasks in cells:
+    out, readings = {}, {}
+    for name, n_pm, n_vm, tasks, pm_sched, compact, bucket in MAIN_CELLS:
+        tasks = n_tasks if tasks is None else tasks
         trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
         spec, params = engine.make_cloud(
-            n_pm=n_pm, n_vm=n_vm, pm_cores=64.0, pm_sched="ondemand",
-            max_events=4_000_000)
-        # each solve's live-flow count, summed on the device (one reduction
-        # a pass, no host read) and read once after the run
-        lives, rates0 = [], fairshare.SCHEDULERS["maxmin"]
+            n_pm=n_pm, n_vm=n_vm, pm_cores=64.0, pm_sched=pm_sched,
+            max_migrations=4, compact=compact, max_events=4_000_000)
+        # each solve's live-flow count, summed on the device (one small
+        # reduction a pass in every cell, no host read in the run) and
+        # read once after it
+        lives = []
+        rates0 = fairshare.SCHEDULERS["maxmin"]
 
         def rates(prov, cons, p_l, live, perf, **kw):
             lives.append(live.sum())
@@ -637,7 +757,9 @@ def main_path(n_tasks: int) -> dict:
         fairshare.SCHEDULERS["maxmin"] = rates
         kernels.reset_launch_counts()
         try:
-            res, wall = run(spec, trace, params, "cuda")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res, wall = run(spec, trace, params, "cuda")
         finally:
             fairshare.SCHEDULERS["maxmin"] = rates0
         launches = dict(kernels.launch_counts(),
@@ -645,8 +767,11 @@ def main_path(n_tasks: int) -> dict:
         events = int(res.n_events)
         counts = torch.stack(lives).cpu().numpy()
         ts = res.state.task_state.cpu().numpy()
+        readings[name] = _bits(res.readings(spec))
         rd = {k: float(v.sum()) for k, v in res.readings(spec).items()}
         rec = dict(n_pm=n_pm, n_vm=n_vm, tasks=int(trace.n),
+                   pm_sched=pm_sched, compact=compact,
+                   bucket=cpk.compact_bucket(spec, "cuda"),
                    spreaders=spec.layout.S, events=events, wall_s=wall,
                    events_per_s=events / wall, launches=launches,
                    completed=int((ts == TASK_DONE).sum()),
@@ -654,33 +779,63 @@ def main_path(n_tasks: int) -> dict:
                    overflow=bool(res.overflow), t_end=float(res.t_end),
                    readings_j=rd, solves=int(counts.size),
                    live_flows_max=int(counts.max()),
-                   live_flows_hist=live_histogram(counts))
+                   live_flows_hist=live_histogram(counts),
+                   compaction_replays=len(caught))
+        moved = migrations_done(spec, params, res.state)
+        rec.update(migrations=round(moved), migrations_raw=moved,
+                   migrating_at_end=int((res.state.vstage
+                                         == mc.VM_MIGRATING).sum()))
         print(json.dumps({name: rec}))
         assert not rec["overflow"], f"{name}: VM slot pool overflowed"
+        assert not caught, (f"{name}: compaction bucket overflowed",
+                            [str(w.message) for w in caught])
         assert rec["completed"] + rec["rejected"] == rec["tasks"], (
             f"{name}: unfinished tasks")
         assert launches["masked_min"] == events, (
             f"{name}: masked_min launched {launches['masked_min']} times in "
             f"{events} advance passes")
-        if name == "full_width":
-            assert launches["maxmin_solve"] == events, launches
-            assert launches["fill_plan"] == 0, launches
-        else:
+        assert rec["bucket"] == bucket, (name, rec["bucket"])
+        if name == "above_gate":
             assert launches["maxmin_solve"] == 0, launches
             assert launches["fill_stats"] >= events, launches
             # one plan per solve that runs a round, at most one per pass
             assert 0 < launches["fill_plan"] <= events, launches
+        else:
+            assert launches["maxmin_solve"] == events, launches
+            assert launches["fill_plan"] == 0, launches
+        # every migration ran to its end, so started = completed
+        assert rec["migrating_at_end"] == 0, rec["migrating_at_end"]
+        assert abs(moved - round(moved)) < 1e-2, (
+            f"{name}: NIC-out work is not whole migrations", moved)
+        if pm_sched == "consolidate":
+            assert rec["migrations"] > 0, f"{name}: no migration"
+        else:
+            assert rec["migrations"] == 0, rec["migrations"]
         out[name] = rec
+    # compaction is exact: the dense run is its bit-identical replay target
+    a, b = out["full_width"], out["full_width_dense"]
+    for k in ("events", "completed", "rejected", "t_end"):
+        assert a[k] == b[k], (k, a[k], b[k])
+    assert readings["full_width"] == readings["full_width_dense"], (
+        "full width: compacted and dense readings differ")
+    out["full_width"]["readings_bit_equal_to_dense"] = True
     return out
 
 
-def cross_check() -> dict:
+def cross_check(pm_sched: str = "alwayson") -> dict:
+    """20 PM x 1024 VM under 200 tasks, compacted (bucket 128, the
+    reference's auto bucket, given explicitly since auto runs dense on the
+    card), twice on the card, bit-identical, and once on the CPU: integers
+    and event counts exact, floats within rtol 1e-5 / atol 1e-6."""
     from repro_torch.core import engine
+    from repro_torch.core.loop import compact as cpk
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
     trace = filter_fitting(gwa_like_trace("das2", 200, seed=7), 64.0)
     spec, params = engine.make_cloud(n_pm=20, n_vm=1024, pm_cores=64.0,
+                                     pm_sched=pm_sched, compact=128,
                                      max_events=4_000_000)
+    assert cpk.compact_bucket(spec, "cuda") == 128
     a, wall_a = run(spec, trace, params, "cuda")
     b, wall_b = run(spec, trace, params, "cuda")
     c, wall_c = run(spec, trace, params, "cpu")
@@ -699,10 +854,17 @@ def cross_check() -> dict:
                                   fc[k].astype(np.int64)), (
                 f"card vs cpu: {k}")
     bit_equal = sum(fa[k].tobytes() == fc[k].tobytes() for k in fa)
-    rec = dict(events=int(a.n_events), card_wall_s=[wall_a, wall_b],
+    name = "cross_check_20x1024" + ("" if pm_sched == "alwayson"
+                                    else f"_{pm_sched}")
+    rec = dict(events=int(a.n_events),
+               bucket=cpk.compact_bucket(spec, "cuda"),
+               pm_sched=pm_sched, card_wall_s=[wall_a, wall_b],
                cpu_wall_s=wall_c, leaves=len(fa),
-               leaves_bit_equal_card_cpu=bit_equal)
-    print(json.dumps({"cross_check_20x1024": rec}))
+               leaves_bit_equal_card_cpu=bit_equal,
+               migrated=bool(np.abs(fa["state.vm_saved_pr"]).sum() > 0))
+    print(json.dumps({name: rec}))
+    if pm_sched in ("consolidate", "defrag", "evacuate"):
+        assert rec["migrated"], f"{name}: no migration"
     return rec
 
 
@@ -875,6 +1037,9 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
                          n=10, warmup=2),
         library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), n=30,
                            warmup=3),
+        device_ms=graph_ms(lambda: kattn.flash_attention(q, k, v), n=10),
+        host_us=host_us(lambda: kattn.flash_attention(q, k, v), n=100,
+                        reps=3),
         bytes=n_bytes, ops=flops, ops_per_s=H100_BF16_OPS_PER_S,
         bound_ms_f32=bound_ms(n_bytes, flops)[0])
     del q, k, v, qt, kt, vt, got, again, lib
@@ -903,6 +1068,9 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
         n_bytes = a.nbytes + x.nbytes + y.nbytes + h0.nbytes + h.nbytes
         times[f"{B}x{T}x{D}"] = dict(
             ms=time_ms(lambda: kssm.linear_scan(a, x, h0), n=50),
+            device_ms=graph_ms(lambda: kssm.linear_scan(a, x, h0), n=10),
+            host_us=host_us(lambda: kssm.linear_scan(a, x, h0), n=100,
+                            reps=3),
             plain_ms=time_ms(lambda: kssm.linear_scan_plain(a, x, h0), n=10,
                              warmup=2),
             bytes=n_bytes, ops=2 * B * T * D,
@@ -914,6 +1082,7 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
         shape="B=4 T=256 D=131072 f32 (one prefill chunk of lm_serve; "
               "decode steps are 4x1x131072)",
         max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+        device_ms=main["device_ms"], host_us=main["host_us"],
         library_ms=None, bytes=main["bytes"], ops=main["ops"])
     torch.cuda.empty_cache()
     return records, checks
@@ -1033,7 +1202,10 @@ def lm_phase(dev) -> dict:
     _, prof_f = profiled(lambda: lm.forward(cfg, params, {"tokens": tokens}))
     _, prof_s = profiled(lambda: _serve(cfg, params, prompts, 32, 1024, dev))
     out["lm_profile"] = dict(forward=prof_f, serve=prof_s)
-    print(json.dumps({"lm_profile": out["lm_profile"]}))
+    print(json.dumps({"lm_profile": {
+        k: {x: y for x, y in v.items()
+            if x not in ("aten_ops", "device_kernels")}
+        for k, v in out["lm_profile"].items()}}))
 
     # ---- lm_kernel_vs_plain: first 8 layers, pallas against chunked ------
     blocks8 = [cm.tree_map(lambda _, t: t[:1], b) for b in params["blocks"]]
@@ -1142,7 +1314,11 @@ def main() -> int:
     print(json.dumps({"kernel_checks": checks}))
     record["main_path"] = timed("main_path", main_path, args.tasks)
     record["cross_check"] = timed("cross_check", cross_check)
-    record["profile"] = timed("profile", profile_phase, 150)
+    record["cross_check_evacuate"] = timed("cross_check_evacuate",
+                                           cross_check, "evacuate")
+    # 300 tasks: the capture's depth, so the busiest captured pass lies in
+    # the profiled window; above the gate the main path's 100
+    record["profile"] = timed("profile", profile_phase, 300, 100)
     record["main_path"].update(timed("lm", lm_phase, dev))
     record["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
@@ -1176,7 +1352,7 @@ def main() -> int:
             **{x: k[x] for x in ("variant", "plan_ms", "public_ms",
                                  "graph_ms", "plan_graph_ms",
                                  "longest_segment", "device_ms", "host_us",
-                                 "general_cases",
+                                 "general_cases", "dense",
                                  "launch_floor_ms", "launch_floor_device_ms",
                                  "launch_floor_host_us") if x in k}))
     record["kernels"] = rows

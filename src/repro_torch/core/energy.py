@@ -312,3 +312,21 @@ def meter_readings(topology: MeterTopology, meters: MeterState
     for k, m in enumerate(topology.indirect):
         out[m.name] = meters.indirect.energy[..., k]
     return out
+
+
+def tenant_energy(readings: dict, vm_tenant, n_tenants: int) -> torch.Tensor:
+    """Per-tenant attributed energy (J) from the per-VM Eq. 6 meters.
+
+    ``vm_tenant`` maps each VM slot to its owning tenant (``-1``: unowned,
+    dropped).  Sums ``readings["vm"]`` by owner; ``readings
+    ["vm_unattributed"]`` stays with the operator.  Single-scenario
+    readings; VM slots must not be reused across tenants within the
+    billing window."""
+    from .arrays import segment_sum
+
+    vm = torch.as_tensor(readings["vm"], dtype=torch.float32)
+    owner = torch.as_tensor(vm_tenant, dtype=torch.int32, device=vm.device)
+    owned = owner >= 0
+    seg = torch.where(owned, owner, n_tenants)   # n_tenants = drop bucket
+    return segment_sum(torch.where(owned, vm, 0.0), seg,
+                       n_tenants + 1)[:n_tenants]

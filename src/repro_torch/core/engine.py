@@ -8,7 +8,11 @@
 * :class:`CloudParams` — every continuous knob plus the VM/PM policy codes.
 * :func:`simulate` — runs a trace to completion and returns a
   :class:`CloudResult`.  The staged pipeline (:mod:`repro_torch.core.loop`)
-  runs from the host; the host reads the loop condition once per body.
+  runs from the host; the host reads the loop condition once per body,
+  together with the compaction verdict (an overflowing bucket replays
+  the scenario dense, with a ``RuntimeWarning``).
+* :func:`start_migration` / :func:`make_allocation` — out-of-loop state
+  edits (a live migration, an expiring core reservation).
 
 Entry points run on CUDA unless called with ``device="cpu"``.
 :func:`params_from_numpy`, :func:`trace_from_numpy` and
@@ -35,7 +39,8 @@ from .fairshare import SCHEDULERS
 from .loop.state import BIG as _BIG, TASK_PENDING, TASK_REJECTED, CloudState
 
 __all__ = ["CloudSpec", "CloudParams", "CloudState", "CloudResult", "Trace",
-           "make_cloud", "init_state", "simulate", "params_from_numpy",
+           "make_cloud", "init_state", "simulate", "dense_spec",
+           "start_migration", "make_allocation", "params_from_numpy",
            "trace_from_numpy", "state_from_numpy", "to_numpy"]
 
 
@@ -51,7 +56,7 @@ class CloudSpec:
     max_fill_iters: int = 64
     max_migrations: int = 4
     meters: MeterTopology = MeterTopology()
-    compact: int = -1            # -1 auto and 0 run the dense path
+    compact: int = -1            # -1 auto (dense on CUDA), 0 off, > 0 a bucket
     steps_per_iter: int = 0      # passes per host check (0 = default)
 
     def __post_init__(self):
@@ -61,12 +66,6 @@ class CloudSpec:
         if self.compact < -1:
             raise ValueError(f"spec.compact must be -1 (auto), 0 (off) or a "
                              f"positive bucket size, got {self.compact}")
-        if self.compact > 0:
-            raise NotImplementedError(
-                "active-set compaction (compact > 0) is not ported to "
-                "repro_torch yet (ROADMAP.md queue 1 item 9); compact=-1 and "
-                "compact=0 run the dense path, which the reference defines "
-                "as the bit-identical replay target")
         if self.steps_per_iter < 0:
             raise ValueError(f"spec.steps_per_iter must be >= 0, got "
                              f"{self.steps_per_iter}")
@@ -239,26 +238,48 @@ def init_state(spec: CloudSpec, trace: Trace,
     )
 
 
-def simulate(spec: CloudSpec, trace: Trace,
-             params: CloudParams | None = None,
-             state: CloudState | None = None,
-             t_stop: float = math.inf, *, device=None) -> CloudResult:
-    """Run the cloud to completion (or ``t_stop``).
+def dense_spec(spec: CloudSpec) -> CloudSpec:
+    """``spec`` with active-set compaction off: the overflow replay's
+    target (bit-identical results, no bucket to overflow)."""
+    return dataclasses.replace(spec, compact=0)
 
-    ``device=None`` runs on CUDA and raises when no card is present;
-    ``device="cpu"`` runs the plain PyTorch path.  A caller's ``state``
-    must already lie on that device."""
-    dev = resolve_device(device)
-    if params is None:
-        params = CloudParams.for_spec(spec)
-    params = params.to(dev)
-    trace = trace.to(dev)
+
+def _warn_dense_rerun(spec: CloudSpec, dev):
+    import warnings
+    from .loop.compact import compact_bucket
+    warnings.warn(
+        f"active-set compaction bucket ({compact_bucket(spec, dev)}) "
+        f"overflowed; replaying the scenario with compact=0 (results are bit-identical; "
+        f"set spec.compact to a larger bucket to avoid the replay)",
+        RuntimeWarning, stacklevel=3)
+
+
+def _simulate_impl(spec, trace, params, state, t_stop, dev):
+    """The staged pipeline run from the host; returns ``(result, ok)``,
+    ``ok`` the compaction verdict over every pass (None when compaction is
+    off).  The passes fold the verdict on the device; the host reads it
+    in the same read as the loop condition, once per body, and stops at
+    the first body whose bucket overflowed, since that run is replayed
+    dense anyway."""
     st = init_state(spec, trace, params, device=dev) if state is None else state
     st = loop.management_pass(spec, params, trace, st)
     t_stop = torch.tensor(t_stop, dtype=torch.float32, device=dev)
     body = loop.make_body(spec, params, trace, t_stop)
-    while bool(st.running & (st.n_events < spec.max_events)):
-        st = body(st)
+    ok = None        # the device verdict of the passes so far
+    while True:
+        go = st.running & (st.n_events < spec.max_events)
+        if ok is None:
+            if not bool(go):
+                break
+        else:
+            # one read for both: 1 go on, 0 settled, -1 a bucket overflowed
+            code = int(torch.where(ok, go.to(torch.int8), -1))
+            if code <= 0:
+                ok = code == 0
+                break
+        st, ok_body = body(st)
+        if ok_body is not None:
+            ok = ok_body if ok is None else ok & ok_body
     return CloudResult(
         state=st,
         completion=st.t_done,
@@ -269,7 +290,81 @@ def simulate(spec: CloudSpec, trace: Trace,
         n_events=st.n_events,
         t_end=st.t,
         overflow=st.overflow,
+    ), ok
+
+
+def simulate(spec: CloudSpec, trace: Trace,
+             params: CloudParams | None = None,
+             state: CloudState | None = None,
+             t_stop: float = math.inf, *, device=None) -> CloudResult:
+    """Run the cloud to completion (or ``t_stop``).
+
+    ``device=None`` runs on CUDA and raises when no card is present;
+    ``device="cpu"`` runs the plain PyTorch path.  A caller's ``state``
+    must already lie on that device, and runs dense from the start, as in
+    the reference (whose donated state makes a replay impossible).  When
+    a compaction bucket overflows the scenario is replayed dense under a
+    ``RuntimeWarning``; the results are bit-identical either way."""
+    dev = resolve_device(device)
+    if params is None:
+        params = CloudParams.for_spec(spec)
+    params = params.to(dev)
+    trace = trace.to(dev)
+    if state is not None:
+        spec = dense_spec(spec)
+    res, ok = _simulate_impl(spec, trace, params, state, t_stop, dev)
+    if ok is False:       # a bucket overflowed: replay dense
+        _warn_dense_rerun(spec, dev)
+        res, _ = _simulate_impl(dense_spec(spec), trace, params, None,
+                                t_stop, dev)
+    return res
+
+
+def start_migration(spec: CloudSpec, params: CloudParams, st: CloudState,
+                    v, dst) -> CloudState:
+    """Begin live-migrating VM slot ``v`` to PM ``dst`` (paper Fig. 6).
+
+    The out-of-loop shim over the masked-migration primitive
+    (:func:`repro_torch.core.loop.migrate.migrate_one`) that the in-loop
+    policies ``consolidate`` / ``defrag`` / ``evacuate`` issue too.  The
+    caller must ensure the destination fits; cores move src -> dst at
+    once.  ``v`` and ``dst`` may be numbers or tensors on ``st``'s
+    device."""
+    from .loop.migrate import migrate_one
+    true = torch.ones((), dtype=torch.bool, device=st.running.device)
+    st = migrate_one(spec, params, st, v, dst, true)
+    return st._replace(running=true)
+
+
+def make_allocation(spec: CloudSpec, st: CloudState, pm, cores, expiry
+                    ) -> tuple[CloudState, torch.Tensor]:
+    """Reserve ``cores`` on ``pm`` as an allocation that expires at
+    ``expiry`` (§3.4.2).  Returns ``(state, VM slot)``, the slot -1 when
+    no slot is free, the PM is not running or lacks the cores."""
+    dev = st.vstage.device
+    P, V = spec.n_pm, spec.n_vm
+    pm = torch.as_tensor(pm, device=dev).reshape(1).long()
+    cores = torch.as_tensor(cores, dtype=torch.float32, device=dev).reshape(1)
+    expiry = torch.as_tensor(expiry, dtype=torch.float32,
+                             device=dev).reshape(1)
+    vfree = st.vstage == mc.VM_FREE
+    v = torch.argmax(vfree.to(torch.int8), dim=0, keepdim=True)  # first free
+    ok = (vfree.any() & (st.free_cores[pm] >= cores)
+          & (st.pstate[pm] == PM_RUNNING))
+    on_v = (torch.arange(V, device=dev) == v) & ok
+    on_pm = torch.arange(P, device=dev) == pm
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    st = st._replace(
+        vstage=torch.where(on_v, mc.VM_ALLOCATED, st.vstage),
+        vm_host=torch.where(on_v, pm.to(st.vm_host.dtype), st.vm_host),
+        vm_cores=torch.where(on_v, cores, st.vm_cores),
+        vm_expiry=torch.where(on_v, expiry, st.vm_expiry),
+        free_cores=torch.where(
+            on_pm, st.free_cores + torch.where(ok, -cores, 0.0),
+            st.free_cores),
+        running=true,
     )
+    return st, torch.where(ok, v, -1).to(torch.int32)[0]
 
 
 # ---------------------------------------------------------------------------

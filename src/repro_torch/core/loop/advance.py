@@ -1,5 +1,5 @@
 """Stage 1 — ``advance``: unified resource sharing + clock-to-horizon
-(port of the dense path of ``repro.core.loop.advance``).
+(port of ``repro.core.loop.advance``).
 
 Computes the per-spreader performance vector (Eq. 5), runs the sharing
 scheduler (§3.2) for this interval's rates, finds the event horizon ``dt``
@@ -7,10 +7,16 @@ with the :func:`~repro_torch.kernels.horizon.masked_min` kernel (§3.1),
 advances the Kahan clock by exactly ``dt`` and drains every live flow.
 The horizon stays a device scalar: nothing here reads it back to the host.
 
+With active-set compaction on (:mod:`repro_torch.core.loop.compact`) the
+fair-share solve, the flow lanes of the horizon and the provider
+reduction run over the active-flow bucket and scatter back, bit-identical
+to the dense pass; the Eq. 5 vector stays dense and the bucket gathers
+from it.
+
 State delta: ``t``/``t_c``/``n_events``, ``meter_next``, ``f_pr``,
 ``processed``.  Context delta: ``r``, ``live``, ``thresh``, ``done``,
 ``delivered``, ``dt``, ``t0``/``t_new``, ``has_event``, ``tick``,
-``period``.
+``period``, ``compact``.
 """
 from __future__ import annotations
 
@@ -18,9 +24,10 @@ import torch
 
 from ...kernels.horizon import masked_min
 from .. import machine as mc
-from ..arrays import segment_sum
+from ..arrays import scatter_drop, segment_sum
 from ..energy import PM_OFF, PM_RUNNING, PM_SWITCHING_OFF, PM_SWITCHING_ON, kahan_add
 from ..fairshare import SCHEDULERS
+from . import compact as cpk
 from .state import BIG, CloudState, StageCtx, live_threshold
 
 
@@ -51,16 +58,38 @@ def advance(ctx: StageCtx, st: CloudState):
     spec, params, trace = ctx.spec, ctx.params, ctx.trace
     lay = spec.layout
     T = trace.n
+    F = spec.n_vm + spec.n_pm
     thresh = live_threshold(st.f_total)
     live = st.f_active & (st.t >= st.f_release) & (st.f_pr > thresh)
     rate_fn = SCHEDULERS[spec.scheduler]
-
     perf = spreader_perf(spec, params, st)
-    r = rate_fn(st.f_prov, st.f_cons, st.f_pl, live, perf,
-                max_iters=spec.max_fill_iters)
-    flow_cand = [st.f_pr / torch.clamp_min(r, 1e-30),    # completion   [F]
-                 st.f_release - st.t]                    # latency      [F]
-    flow_mask = [live & (r > 0), st.f_active & (st.t < st.f_release)]
+
+    if cpk.compact_bucket(spec, st.t.device):
+        # The solve sees the same live flows, rate limits and capacities in
+        # the same index order as the dense call, so its rates are
+        # bit-identical.  Fill lanes are never live; their ids are clamped
+        # into the bucket so that no gather of them leaves it.
+        cp = cpk.build_compact(spec, st)
+        SB = cp.sidx.shape[0]
+        touched = torch.clamp_max(cp.sidx, lay.S - 1).long()
+        live_b = cpk.gather_flows(cp, live, False)
+        f_pr_b = cpk.gather_flows(cp, st.f_pr, 0.0)
+        f_pl_b = cpk.gather_flows(cp, st.f_pl, 0.0)
+        f_rel_b = cpk.gather_flows(cp, st.f_release, float("inf"))
+        r_b = rate_fn(torch.clamp_max(cp.bprov, SB - 1),
+                      torch.clamp_max(cp.bcons, SB - 1), f_pl_b, live_b,
+                      perf[touched], max_iters=spec.max_fill_iters)
+        r = cpk.scatter_flows(cp, F, r_b)
+        flow_cand = [f_pr_b / torch.clamp_min(r_b, 1e-30),  # completion [FB]
+                     f_rel_b - st.t]                       # latency    [FB]
+        flow_mask = [live_b & (r_b > 0), cp.fvalid & (st.t < f_rel_b)]
+    else:
+        cp = None
+        r = rate_fn(st.f_prov, st.f_cons, st.f_pl, live, perf,
+                    max_iters=spec.max_fill_iters)
+        flow_cand = [st.f_pr / torch.clamp_min(r, 1e-30),  # completion   [F]
+                     st.f_release - st.t]                  # latency      [F]
+        flow_mask = [live & (r > 0), st.f_active & (st.t < st.f_release)]
 
     # ---- event horizon: one masked-min reduction ------------------------
     # Families: flow completion, latency-gate release, PM power transition,
@@ -100,17 +129,30 @@ def advance(ctx: StageCtx, st: CloudState):
     f_pr = torch.where(live, torch.clamp_min(st.f_pr - r * dt, 0.0), st.f_pr)
     done = live & (f_pr <= thresh)
     # one 2-column provider-side reduction: delivered rate (observe's
-    # utilisation numerator) and processed work
-    prov_stats = segment_sum(
-        torch.stack([torch.where(live, r, 0.0),
-                     torch.where(live, r * dt, 0.0)], dim=-1),
-        st.f_prov, lay.S, where=live)
-    delivered = prov_stats[:, 0]
-    processed = st.processed + prov_stats[:, 1]
+    # utilisation numerator) and processed work.  The compacted one adds
+    # the same live terms in the same flow order per touched spreader and
+    # scatters the sums back (an untouched spreader gains nothing).
+    if cp is None:
+        prov_stats = segment_sum(
+            torch.stack([torch.where(live, r, 0.0),
+                         torch.where(live, r * dt, 0.0)], dim=-1),
+            st.f_prov, lay.S, where=live)
+        delivered = prov_stats[:, 0]
+        processed = st.processed + prov_stats[:, 1]
+    else:
+        stats_b = segment_sum(
+            torch.stack([torch.where(live_b, r_b, 0.0),
+                         torch.where(live_b, r_b * dt, 0.0)], dim=-1),
+            cp.bprov, SB, where=live_b)
+        delivered = scatter_drop(torch.zeros_like(st.processed), cp.sidx,
+                                 stats_b[:, 0])
+        processed = scatter_drop(st.processed, cp.sidx,
+                                 st.processed[touched] + stats_b[:, 1])
 
     ctx = ctx._replace(r=r, live=live, thresh=thresh, done=done,
                        delivered=delivered, dt=dt, t0=st.t, t_new=t_new,
-                       has_event=has_event, tick=tick, period=period)
+                       has_event=has_event, tick=tick, period=period,
+                       compact=cp)
     st = st._replace(t=t_new, t_c=t_c, n_events=st.n_events + 1,
                      meter_next=meter_next, f_pr=f_pr, processed=processed)
     return ctx, st

@@ -9,6 +9,9 @@ followed by the :func:`termination` verdict.  The reference runs passes in a
 ``lax.while_loop``; here :func:`repro_torch.core.engine.simulate` calls the
 body returned by :func:`make_body` from the host, and reads
 ``running & (n_events < max_events)`` once per body, i.e. once per K passes.
+With active-set compaction on, each pass also yields the bucket verdict
+``ok``; the body folds it on the device and the engine reads it in the
+same read as the loop condition.
 """
 from __future__ import annotations
 
@@ -65,28 +68,35 @@ def _select(cond: torch.Tensor, new, old):
 
 
 def make_body(spec, params, trace, t_stop):
-    """The loop body: K pipeline passes.  The first needs no guard (the
-    host's loop condition admitted it); each later pass is discarded
-    leaf-wise when its entry state had settled, so K passes give exactly
-    the state and event count of K single passes."""
+    """The loop body: K pipeline passes, returning ``(state, ok)``.  The
+    first pass needs no guard (the host's loop condition admitted it);
+    each later pass is discarded leaf-wise when its entry state had
+    settled, so K passes give exactly the state and event count of K
+    single passes.  ``ok`` is the compaction verdict of the passes kept
+    (a device bool), None when compaction is off."""
     arrival_sorted = torch.sort(trace.arrival).values
 
-    def one_pass(st: CloudState) -> CloudState:
+    def one_pass(st: CloudState):
         ctx = StageCtx(spec=spec, params=params, trace=trace, t_stop=t_stop,
                        arrival_sorted=arrival_sorted)
         snap = (st.task_state, st.vstage, st.pstate, st.f_active)
         for stage in STAGES:
             ctx, st = stage(ctx, st)
-        return termination(ctx, st, snap)
+        ok = None if ctx.compact is None else ctx.compact.ok
+        return termination(ctx, st, snap), ok
 
     K = steps_per_iter(spec)
 
-    def body(st: CloudState) -> CloudState:
-        st = one_pass(st)
+    def body(st: CloudState):
+        st, ok = one_pass(st)
         for _ in range(K - 1):
             cont = st.running & (st.n_events < spec.max_events)
-            st = _select(cont, one_pass(st), st)
-        return st
+            new, ok_k = one_pass(st)
+            st = _select(cont, new, st)
+            if ok_k is not None:
+                # a discarded pass's bucket does not count
+                ok = ok & (ok_k | ~cont)
+        return st, ok
 
     return body
 

@@ -1,9 +1,12 @@
 """Stage 2 — ``observe``: the metering hook over ``[t0, t_new]`` (port of
-the dense path of ``repro.core.loop.observe``).
+``repro.core.loop.observe``).
 
 Builds one :class:`~repro_torch.core.energy.SimView` of the interval from
 interval-start facts (``ctx.r``/``ctx.live``/``ctx.delivered``, clock
 ``ctx.t0``) and calls :func:`repro_torch.core.energy.observe`.
+
+The Eq. 6 views read the dense ``ctx.r`` and ``ctx.live`` in either
+mode: a compacted ``advance`` scatters its rates back before this stage.
 
 State delta: ``meters``.  Context delta: ``view``.
 """

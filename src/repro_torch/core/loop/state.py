@@ -105,6 +105,7 @@ class StageCtx(NamedTuple):
     has_event: torch.Tensor | None = None
     tick: torch.Tensor | None = None
     period: torch.Tensor | None = None
+    compact: Any = None        # the pass's Compact gather (None: dense)
 
     # -- filled by the `observe` stage -----------------------------------
     view: Any = None

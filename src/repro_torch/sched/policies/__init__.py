@@ -8,24 +8,12 @@ layer     code   policy
 ``vm``    2      ``smallestfirst`` — serve the smallest queued task
 ``pm``    0      ``alwayson`` — the identity: machines never change
 ``pm``    1      ``ondemand`` — wake against the queue, sleep loadless
-``pm``    2      ``consolidate`` — not ported yet (raises)
-``pm``    3      ``defrag`` — not ported yet (raises)
-``pm``    4      ``evacuate`` — not ported yet (raises)
+``pm``    2      ``consolidate`` — on-demand + one idle-meter-driven
+                 live migration per pass
+``pm``    3      ``defrag`` — on-demand + bin-packing migrations
+                 toward the most-loaded feasible host
+``pm``    4      ``evacuate`` — on-demand + multi-VM donor drain (up
+                 to ``CloudSpec.max_migrations`` moves per pass)
 ========  =====  ==================================================
 """
-from . import baseline  # noqa: F401
-from .. import registry as _registry
-
-
-def _not_ported(name: str):
-    def policy(spec, params, ctx, st):
-        raise NotImplementedError(
-            f"PM policy {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1 item 8: migrating PM policies)")
-    policy.__name__ = name
-    return policy
-
-
-for _name in ("consolidate", "defrag", "evacuate"):
-    _registry.register("pm", _name, _not_ported(_name),
-                       doc="not ported yet: ROADMAP.md queue 1 item 8")
+from . import baseline, consolidate, defrag, evacuate  # noqa: F401
