@@ -28,7 +28,13 @@ Phases, each of which raises on failure (nothing is caught):
    main path runs it, one round on a plan built once (its time, the plan's,
    the public call's, the wrapper's host time, and both kernels' device
    time alone from a CUDA graph), bit-equal to the CPU plain version, with
-   the longest segment;
+   the longest segment; then the lane axis of the three (maxmin_solve at
+   B = 8 on the batched full-width cell's busiest pass and on every batch
+   of maxmin_cases.lane_cases, masked_min at B = 8 x N = 9696 and on
+   grid-path rows, fill_plan / fill_round at B = 2 above the gate): each
+   lane bit-equal to the CPU plain version, repeat launches bit-equal,
+   one launch a call, B = 1 equal to the 1-D launch; timed at B = 1 and
+   B = 8 (2);
 4. the main path at full width: 500 PM x 4096 VM under 2000 DAS-2-like
    tasks (the largest row of the repository's throughput grid), compacted
    (bucket 2048, the reference's auto bucket given explicitly: full_width)
@@ -45,14 +51,23 @@ Phases, each of which raises on failure (nothing is caught):
    Each cell has the kernels' launch counters set to 0 just before and
    read just after, each solve's live-flow count summed on the device
    (live_flows_max and live_flows_hist, binned by the solve's code path),
-   and no compaction bucket may overflow;
+   and no compaction bucket may overflow.  The migrating cell runs 1000
+   tasks.  Then the batched cells through simulate_batch, counters reset
+   likewise: batched_full_width (8 lanes of the full-width cell, net_bw
+   x image_mb; lane (125, 100) bit-equal to full_width_dense, lane (500,
+   400) to its own single run; one launch of each kernel a pass) and
+   batched_above_gate (2 lanes; lane 0 bit-equal to above_gate); then
+   batched_matrix, the 15 (vm_sched, pm_sched) lanes at 20 PM x 1024 VM,
+   200 tasks, bucket 128: two card runs bit-identical, one CPU run within
+   tolerance, the firstfit lanes bit-equal to their single card runs, a
+   migrating lane that migrates;
 5. cross-check: 20 PM x 1024 VM under 200 tasks (bucket 128), under
    alwayson and again under evacuate (which must migrate), each twice on
    the card (the two runs must be bit-identical) and once on the CPU
    (exact integers and event counts, floats within rtol 1e-5 / atol
-   1e-6); then the full-width cell at 300 tasks, compacted and dense, and
-   the above-gate cell at 100 tasks under torch.profiler, summarised from
-   the trace's raw events: device idle share, device time of each
+   1e-6); then the full-width cell at 150 tasks, compacted and dense, the
+   above-gate cell at 100 tasks and the batched full-width cell at 150
+   under torch.profiler, summarised from the trace's raw events: device idle share, device time of each
    hand-written kernel, events/s, kernel launches and host reads per pass
    (the compacted pass may not read the host more often than the dense
    one);
@@ -76,6 +91,15 @@ Phases, each of which raises on failure (nothing is caught):
 
 Exits non-zero without a result when no CUDA device is present.  Writes
 the full record to DIR/chip_smoke.json (default build/chip_smoke/).
+
+    python3 chip_smoke.py --compare-parent DIR [--tasks N]
+
+runs only full_width_dense, from this checkout and from the checkout
+unpacked at DIR (the parent commit), each in a process of its own, in
+turns parent, change, change, parent: events and readings must agree bit
+for bit, host reads a pass be no more and kernel launches a pass within 5%
+of the parent's; the record goes to compare_parent.json in the --out
+directory.
 """
 from __future__ import annotations
 
@@ -218,30 +242,34 @@ def flow_inputs(C: int, S: int, seed: int, dev):
     return host, [x.to(dev) for x in host]
 
 
-def capture(n_pm: int, n_vm: int, n_tasks: int, compact: int = -1) -> dict:
+def capture(n_pm: int, n_vm: int, n_tasks: int, compact: int = -1,
+            lanes: dict | None = None, device: str = "cuda") -> dict:
     """Run a DAS-2-like cell on the card and keep the kernel inputs of its
-    busiest pass (the most live flows): the fair-share problem, the first
-    fill_stats round of it, and the horizon vector.  ``compact`` is the
-    spec's compaction setting (0 dense, > 0 a bucket; auto runs dense on
-    the card).  The recorders wrap the engine's call sites for this run
-    only."""
+    busiest pass (the most live flows, over all lanes): the fair-share
+    problem, the first fill_stats round of it, and the horizon vector.
+    ``compact`` is the spec's compaction setting (0 dense, > 0 a bucket;
+    auto runs dense on the card).  ``lanes`` runs a batch (``{param:
+    [value a lane]}``) and keeps every lane's row ([B, ...]); without it
+    the one scenario's row ([C], [S], [N]).  The recorders wrap the
+    engine's call sites for this run only."""
     from repro_torch.core import engine, fairshare
     from repro_torch.core.loop import advance
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
     best = {"live": -1}
     rates0, min0 = fairshare.SCHEDULERS["maxmin"], advance.masked_min
+    row = (lambda x: x.clone()) if lanes else (lambda x: x[0].clone())
 
     def rates(prov, cons, p_l, live, perf, **kw):
         n = int(live.sum())
         if n > best["live"]:
             best.update(live=n, pending=True, solve=tuple(
-                x.clone() for x in (prov, cons, p_l, live, perf)))
+                row(x) for x in (prov, cons, p_l, live, perf)))
         return rates0(prov, cons, p_l, live, perf, **kw)
 
     def horizon(cand, mask):
         if best.pop("pending", False):
-            best["horizon"] = (cand.clone(), mask.clone())
+            best["horizon"] = (row(cand), row(mask))
         return min0(cand, mask)
 
     trace = filter_fitting(gwa_like_trace("das2", n_tasks, seed=7), 64.0)
@@ -250,7 +278,10 @@ def capture(n_pm: int, n_vm: int, n_tasks: int, compact: int = -1) -> dict:
                                      max_events=4_000_000)
     fairshare.SCHEDULERS["maxmin"], advance.masked_min = rates, horizon
     try:
-        run(spec, trace, params, "cuda")
+        if lanes:
+            run_batch(spec, trace, sweep_params(params, lanes), device)
+        else:
+            run(spec, trace, params, device)
     finally:
         fairshare.SCHEDULERS["maxmin"], advance.masked_min = rates0, min0
     return best
@@ -268,7 +299,7 @@ def launch_floor(dev) -> dict:
     ptr = x.data_ptr()
 
     def call():
-        assert fn(ptr, ptr, ptr, None, 16, _stream(dev)) == 0
+        assert fn(ptr, ptr, ptr, None, 16, 1, _stream(dev)) == 0
 
     return dict(launch_floor_ms=time_ms(call),
                 launch_floor_device_ms=graph_ms(call),
@@ -560,6 +591,244 @@ def kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
     return records, checks
 
 
+# the batched full-width cell's lanes: net_bw x image_mb, a Pareto-style
+# grid; lane 2 (125 MB/s, 100 MB) is the full_width_dense scenario
+FULL_WIDTH_SWEEP = {"net_bw": [62.5, 62.5, 125.0, 125.0, 250.0, 250.0,
+                               500.0, 500.0],
+                    "image_mb": [100.0, 400.0] * 4}
+ABOVE_GATE_SWEEP = {"net_bw": [125.0, 250.0]}
+
+
+def _bit_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _solve_work(dargs, iters) -> tuple[int, int, list]:
+    """Bytes and operations a batch of solves needs, summed over its lanes
+    (each lane: live read, r written, each live flow's provider, consumer
+    and p_l, each touched spreader's perf; per round 10 operations a live
+    flow and 3 a run), and each lane's live count and rounds, counted on
+    the CPU plain version."""
+    from repro_torch.kernels import maxmin
+    n_bytes = n_ops = 0
+    per_lane = []
+    for lane in zip(*(x.cpu() for x in dargs)):
+        hp, hc, _, hl, _ = lane
+        c = hp.shape[0]
+        n_live = int(hl.sum())
+        touched = int(torch.unique(torch.cat([hp[hl], hc[hl]])).numel())
+        runs = int(torch.unique(hp[hl]).numel() + torch.unique(hc[hl]).numel())
+        rounds = []
+        maxmin.progressive_filling(
+            *lane, lambda *a: rounds.append(1) or maxmin.fill_round_plain(*a),
+            plan_fn=maxmin.fill_plan_plain, max_iters=iters)
+        n_bytes += c + 4 * c + 12 * n_live + 4 * touched
+        n_ops += len(rounds) * (10 * n_live + 3 * runs)
+        per_lane.append((n_live, len(rounds)))
+    return n_bytes, n_ops, per_lane
+
+
+def lane_kernel_phase(dev, n_capture: int) -> tuple[dict, dict]:
+    """The lane axis of the three main-path kernels on the card: maxmin_solve
+    at B = 8 on the busiest pass of the batched full-width cell (captured
+    from a run of ``n_capture`` tasks) and on every batch of
+    ``maxmin_cases.lane_cases``; masked_min at B = 8 x N = 9696 (captured
+    and random) and on grid-path rows (N > 65,536); fill_plan / fill_round
+    at B = 2 on the batched above-gate cell's busiest pass and at random.
+    Each launch must equal the CPU plain version on every row bit for bit,
+    repeat bit for bit, count one launch whatever B is, and at B = 1 equal
+    the 1-D launch.  Timed at B = 1 and at B = 8 (B = 2 for the round)."""
+    from repro_torch.kernels import horizon, maxmin
+    from repro_torch.kernels.maxmin_cases import lane_cases
+
+    records, checks = {}, {}
+    cap = capture(500, 4096, n_capture, compact=0, lanes=FULL_WIDTH_SWEEP)
+    above = capture(1500, 8192, 30, lanes=ABOVE_GATE_SWEEP)
+    B = len(FULL_WIDTH_SWEEP["net_bw"])
+    assert [tuple(x.shape) for x in cap["solve"]] == [(B, 4596)] * 4 + [
+        (B, 6098)], [x.shape for x in cap["solve"]]
+
+    def one_launch(wrapper, fn):
+        n0 = wrapper.launches
+        out = fn()
+        assert wrapper.launches == n0 + 1, (
+            f"{wrapper.__name__}: a lane-axis call must be one launch")
+        return out
+
+    # ---- maxmin_solve --------------------------------------------------
+    sets = {"captured_batched_full_width": (cap["solve"], 64)}
+    for case in lane_cases():
+        sets[case.label] = (tuple(torch.from_numpy(x).to(dev)
+                                  for x in case.args()), case.max_iters)
+    for label, (dargs, iters) in sets.items():
+        got = one_launch(maxmin.maxmin_solve,
+                         lambda: maxmin.maxmin_solve(*dargs, max_iters=iters))
+        got2 = maxmin.maxmin_solve(*dargs, max_iters=iters)
+        b1 = maxmin.maxmin_solve(*(x[:1] for x in dargs), max_iters=iters)
+        d1 = maxmin.maxmin_solve(*(x[0] for x in dargs), max_iters=iters)
+        wise = maxmin.progressive_filling(*dargs, maxmin.fill_round,
+                                          max_iters=iters)
+        torch.cuda.synchronize()
+        want = maxmin.maxmin_solve_plain(*(x.cpu() for x in dargs),
+                                         max_iters=iters)
+        g = got.cpu()
+        for b in range(g.shape[0]):
+            assert _bit_equal(g[b], want[b]), (
+                f"maxmin_solve lanes {label}: lane {b} not bit-equal to the "
+                f"CPU plain version (max abs err "
+                f"{max_abs_err(g[b], want[b])})")
+        assert _bit_equal(g, got2.cpu()), f"maxmin_solve lanes {label}: repeat"
+        assert _bit_equal(b1.cpu()[0], d1.cpu()) and _bit_equal(
+            d1.cpu(), g[0]), f"maxmin_solve lanes {label}: B = 1 vs 1-D"
+        assert _bit_equal(wise.cpu(), g), (
+            f"maxmin_solve lanes {label}: the round-wise route differs")
+        checks[f"maxmin_solve_lanes_{label}"] = dict(
+            lanes=g.shape[0], bit_equal_to_cpu_plain=True)
+
+    def timing(fn, plain, n_bytes, n_ops, n_plain=20):
+        return dict(ms=time_ms(fn), device_ms=graph_ms(fn),
+                    host_us=host_us(fn),
+                    plain_ms=time_ms(plain, n=n_plain, warmup=2),
+                    bytes=n_bytes, ops=n_ops)
+
+    dargs = cap["solve"]
+    dargs1 = tuple(x[:1] for x in dargs)      # B = 1: the first lane
+    nb8, no8, per_lane = _solve_work(dargs, 64)
+    nb1, no1, _ = _solve_work(dargs1, 64)
+    b8 = timing(lambda: maxmin.maxmin_solve(*dargs),
+                lambda: maxmin.maxmin_solve_plain(*dargs), nb8, no8)
+    b1 = timing(lambda: maxmin.maxmin_solve(*dargs1),
+                lambda: maxmin.maxmin_solve_plain(*dargs1), nb1, no1)
+    records["maxmin_solve_lanes"] = dict(
+        b8, shape=f"B={B} x (C=4596, S=6098), (live, rounds) a lane "
+                  f"{per_lane} (batched full width, busiest captured pass)",
+        max_abs_err=0.0, b1=b1)
+
+    # ---- masked_min ----------------------------------------------------
+    rng = np.random.RandomState(5)
+    N = 9696
+    ccand, cmask = cap["horizon"]
+    assert tuple(ccand.shape) == (B, N), ccand.shape
+    rows = {"captured_batched_full_width": (ccand, cmask),
+            "random": (torch.from_numpy((rng.randn(B, N) * 100).astype(
+                np.float32)).to(dev), torch.from_numpy(rng.rand(B, N) < 0.6)
+                .to(dev)),
+            "grid_path_rows": (torch.from_numpy((rng.randn(3, 70_000) * 50)
+                                                .astype(np.float32)).to(dev),
+                               torch.from_numpy(rng.rand(3, 70_000) < 0.5)
+                               .to(dev))}
+    edge_c, edge_m = (x.clone() for x in rows["random"])
+    edge_m[1] = False                               # an empty row: 3e38
+    edge_c[2, 7], edge_m[2, 7] = float("nan"), True  # a NaN row
+    rows["empty_and_nan_rows"] = (edge_c, edge_m)
+    for label, (c, m) in rows.items():
+        got = one_launch(horizon.masked_min,
+                         lambda: horizon.masked_min(c, m))
+        got2 = horizon.masked_min(c, m)
+        b1 = horizon.masked_min(c[:1], m[:1])
+        d1 = horizon.masked_min(c[0], m[0])
+        torch.cuda.synchronize()
+        want = horizon.masked_min_plain(c.cpu(), m.cpu())
+        g = got.cpu()
+        for b in range(g.shape[0]):
+            k, p = g[b].item(), want[b].item()
+            assert k == p or (np.isnan(k) and np.isnan(p)), (
+                f"masked_min rows {label}: row {b} kernel {k} plain {p}")
+        assert _bit_equal(g, got2.cpu()) and _bit_equal(
+            b1.cpu()[0], d1.cpu()) and _bit_equal(d1.cpu(), g[0]), (
+            f"masked_min rows {label}: repeat or B = 1 vs 1-D")
+        checks[f"masked_min_rows_{label}"] = dict(rows=g.shape[0],
+                                                   equal_to_cpu_plain=True)
+    c1, m1 = ccand[:1], cmask[:1]
+    records["masked_min_lanes"] = dict(
+        timing(lambda: horizon.masked_min(ccand, cmask),
+               lambda: horizon.masked_min_plain(ccand, cmask),
+               B * (5 * N + 4), B * 2 * N, n_plain=50),
+        shape=f"B={B} x N={N} (batched full width, busiest captured pass)",
+        max_abs_err=0.0,
+        b1=timing(lambda: horizon.masked_min(c1, m1),
+                  lambda: horizon.masked_min_plain(c1, m1),
+                  5 * N + 4, 2 * N, n_plain=50))
+
+    # ---- fill_plan / fill_round ----------------------------------------
+    prov, cons, _, live, perf = above["solve"]
+    L2 = prov.shape[0]
+    S2 = perf.shape[-1]
+    r0 = torch.zeros(prov.shape, dtype=torch.float32, device=dev)
+    fsets = {"captured_batched_above_gate": (prov, cons, r0, live, live,
+                                             perf)}
+    lanes = [flow_inputs(prov.shape[1], S2, seed, dev)[1] for seed in (7, 8)]
+    fsets["random_above_gate"] = tuple(
+        torch.stack([ln[i] for ln in lanes]) for i in (0, 1, 5, 3, 6, 4))
+    for label, fargs in fsets.items():
+        fp, fc, fr, fl, fu, fperf = fargs
+        n_plan, n_round = maxmin.fill_plan.launches, maxmin.fill_stats.launches
+        plan = maxmin.fill_plan(fp, fc, fl, None, S2)
+        dp, dc = maxmin.fill_round(plan, fr, fl, fu & fl, fperf)
+        assert (maxmin.fill_plan.launches, maxmin.fill_stats.launches) == (
+            n_plan + 1, n_round + 1), "fill_plan / fill_round: one launch"
+        pp, pc = maxmin.fill_stats(*fargs)
+        dp2, dc2 = maxmin.fill_round(plan, fr, fl, fu & fl, fperf)
+        one = maxmin.fill_round(maxmin.fill_plan(fp[:1], fc[:1], fl[:1], None,
+                                                 S2), fr[:1], fl[:1],
+                                (fu & fl)[:1], fperf[:1])
+        vec = maxmin.fill_round(maxmin.fill_plan(fp[0], fc[0], fl[0], None,
+                                                 S2), fr[0], fl[0],
+                                (fu & fl)[0], fperf[0])
+        torch.cuda.synchronize()
+        host = tuple(x.cpu() for x in fargs)
+        wp, wc = maxmin.fill_stats_plain(*host[:4], host[4] & host[3],
+                                         host[5])
+        xp, xc = maxmin.fill_stats_plain(*host)
+        wplan = maxmin.fill_plan_plain(host[0], host[1], host[3], None, S2)
+        # the offsets whole, each lane's CSR up to its end (the tail is
+        # unused: the kernel leaves it unwritten)
+        for got, want, off in zip(plan, wplan, (wplan.off_p, wplan.off_p,
+                                                wplan.off_c, wplan.off_c)):
+            got = got.cpu()
+            for b in range(L2):
+                n = want.shape[-1] if want.shape[-1] == S2 + 1 else int(
+                    off[b, -1])
+                assert torch.equal(got[b, :n], want[b, :n]), (
+                    f"fill_plan lanes {label}: lane {b}")
+        for got, want in ((dp, wp), (dc, wc), (pp, xp), (pc, xc),
+                          (dp2, wp), (dc2, wc)):
+            assert _bit_equal(got.cpu(), want), (
+                f"fill_round lanes {label}: not bit-equal to the CPU plain "
+                f"version")
+        for a, b in zip(one, vec):
+            assert _bit_equal(a.cpu()[0], b.cpu()), f"fill lanes {label} B=1"
+        assert _bit_equal(vec[0].cpu(), wp[0]), f"fill lanes {label} 1-D"
+        checks[f"fill_lanes_{label}"] = dict(lanes=L2,
+                                             bit_equal_to_cpu_plain=True)
+    plan2 = maxmin.fill_plan(prov, cons, live, None, S2)
+    p1, c1, l1, f1, r1 = prov[:1], cons[:1], live[:1], perf[:1], r0[:1]
+    plan1 = maxmin.fill_plan(p1, c1, l1, None, S2)
+    C2 = prov.shape[1]
+    n_live = int(live.sum())
+    records["fill_stats_lanes"] = dict(
+        timing(lambda: maxmin.fill_round(plan2, r0, live, live, perf),
+               lambda: maxmin.fill_round_plain(plan2, r0, live, live, perf),
+               L2 * (14 * C2 + 12 * S2), 4 * n_live + L2 * 8 * S2),
+        plan_ms=time_ms(lambda: maxmin.fill_plan(prov, cons, live, None, S2)),
+        plan_device_ms=graph_ms(lambda: maxmin.fill_plan(prov, cons, live,
+                                                         None, S2)),
+        shape=f"B={L2} x (C={C2}, S={S2}), a round on its plan (batched "
+              f"above-gate cell, busiest captured pass)",
+        longest_segment=plan2.longest_segment(), max_abs_err=0.0,
+        b1=dict(timing(
+            lambda: maxmin.fill_round(plan1, r1, l1, l1, f1),
+            lambda: maxmin.fill_round_plain(plan1, r1, l1, l1, f1),
+            14 * C2 + 12 * S2, 4 * int(l1.sum()) + 8 * S2),
+            plan_ms=time_ms(lambda: maxmin.fill_plan(p1, c1, l1, None, S2)),
+            plan_device_ms=graph_ms(lambda: maxmin.fill_plan(p1, c1, l1,
+                                                             None, S2))))
+    checks["captured_live_flows_batched"] = {
+        "batched_full_width": cap["live"], "batched_above_gate": above["live"]}
+    return records, checks
+
+
 # the port's hand-written kernels, as the profiler names them
 OUR_KERNELS = ("maxmin_solve_kernel", "fill_plan_kernel", "fill_round_kernel",
                "masked_min_kernel", "flash_mma_kernel", "flash_f32_kernel",
@@ -628,32 +897,44 @@ def profiled(fn) -> tuple:
         summary_s=time.perf_counter() - t1)
 
 
-def profile_phase(n_tasks: int, n_above: int) -> dict:
+def profile_phase(n_tasks: int, n_above: int, n_batched: int) -> dict:
     """The full-width cell cut to ``n_tasks``, compacted (bucket 2048) and
-    dense (auto on the card), and the above-gate cell cut to ``n_above``
-    tasks, under torch.profiler: device busy and idle share, device time
-    of each hand-written kernel, events/s, kernel launches and host reads
-    per pass, the top host-side ops.  Compaction may read the host no more
-    often a pass than the dense run."""
+    dense (auto on the card), the above-gate cell cut to ``n_above``
+    tasks, and the batched full-width cell (8 lanes, dense) cut to
+    ``n_batched`` tasks, under torch.profiler: device busy and idle share,
+    device time of each hand-written kernel, events/s (of all lanes),
+    kernel launches and host reads per pass, the top host-side ops.
+    Compaction may read the host no more often a pass than the dense
+    run."""
     from repro_torch.core import engine
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
     out = {}
-    for name, n_pm, n_vm, tasks, compact in (
-            ("full_width", 500, 4096, n_tasks, 2048),
-            ("full_width_dense", 500, 4096, n_tasks, -1),
-            ("above_gate", 1500, 8192, n_above, -1)):
+    for name, n_pm, n_vm, tasks, compact, lanes in (
+            ("full_width", 500, 4096, n_tasks, 2048, None),
+            ("full_width_dense", 500, 4096, n_tasks, -1, None),
+            ("above_gate", 1500, 8192, n_above, -1, None),
+            ("batched_full_width", 500, 4096, n_batched, -1,
+             FULL_WIDTH_SWEEP)):
         trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
         spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
                                          pm_sched="ondemand", compact=compact,
                                          max_events=4_000_000)
-        (res, _), prof = profiled(lambda: run(spec, trace, params, "cuda"))
-        events = int(res.n_events)
-        out[name] = dict(tasks=int(trace.n), events=events, **prof,
-                         events_per_s=events / prof["wall_s"],
+        if lanes is None:
+            (res, _), prof = profiled(lambda: run(spec, trace, params,
+                                                  "cuda"))
+        else:
+            bp = sweep_params(params, lanes)
+            (res, _), prof = profiled(lambda: run_batch(spec, trace, bp,
+                                                        "cuda"))
+        # a pass serves every lane: the busiest lane's events count them
+        events = int(res.n_events.sum())
+        passes = int(res.n_events.max())
+        out[name] = dict(tasks=int(trace.n), events=events, passes=passes,
+                         **prof, events_per_s=events / prof["wall_s"],
                          kernel_launches_per_pass=prof["kernel_launches"]
-                         / events,
-                         host_reads_per_pass=prof["host_reads"] / events)
+                         / passes,
+                         host_reads_per_pass=prof["host_reads"] / passes)
         print(json.dumps({f"profile_{name}": {
             k: v for k, v in out[name].items()
             if k not in ("aten_ops", "device_kernels")}}))
@@ -685,6 +966,26 @@ def run(spec, trace, params, device):
     return res, time.perf_counter() - t0
 
 
+def run_batch(spec, trace, params, device):
+    """``engine.simulate_batch`` timed as :func:`run` times one scenario."""
+    from repro_torch.core import engine
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.simulate_batch(spec, trace, params, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def sweep_params(params, lanes: dict):
+    """``params`` with each parameter of ``lanes`` set to its values, one a
+    lane (an f32 or int32 [B] tensor)."""
+    kw = {k: torch.tensor(v, dtype=torch.int32 if k.endswith("_sched")
+                          else torch.float32) for k, v in lanes.items()}
+    return dataclasses.replace(params, **kw)
+
+
 # live flows per solve, by the fused solve's code path: none (no round),
 # one warp with no barrier, one warp's register sort, the block sort in
 # shared memory, the global workspace
@@ -701,6 +1002,10 @@ def _bits(readings: dict) -> dict:
     return {k: v.cpu().numpy().tobytes() for k, v in readings.items()}
 
 
+# Tasks of the kernel phases' captures and of the profiled full-width runs
+# (the captured busiest pass then lies in the profiled window).
+CAPTURE_TASKS = 150
+
 # name, PMs, VMs, tasks (None: --tasks), PM policy, spec.compact, bucket.
 # The auto rule (-1) runs dense on the card; 2048 is the reference's auto
 # bucket for this cloud, next_pow2(4P + 32), given explicitly.
@@ -710,7 +1015,8 @@ MAIN_CELLS = (
     # S = 4P + 2 + V = 14194 > MAX_SOLVE_S: the round-wise path
     ("above_gate", 1500, 8192, 100, "ondemand", -1, 0),
     # the reference default consolidate_idle_frac = 0.6
-    ("migrating_full_width", 500, 4096, None, "consolidate", 2048, 2048),
+    # cut to 1000 tasks (of 2000) since slice 6, to keep the script's time
+    ("migrating_full_width", 500, 4096, 1000, "consolidate", 2048, 2048),
 )
 
 
@@ -819,7 +1125,181 @@ def main_path(n_tasks: int) -> dict:
     assert readings["full_width"] == readings["full_width_dense"], (
         "full width: compacted and dense readings differ")
     out["full_width"]["readings_bit_equal_to_dense"] = True
+    return out, readings
+
+
+def _flat(res, spec) -> dict:
+    """Every leaf of a result, its readings included, as numpy arrays."""
+    from repro_torch.core import engine
+    out = engine.to_numpy(res)
+    out.update({f"readings.{k}": v.cpu().numpy()
+                for k, v in res.readings(spec).items()})
     return out
+
+
+def _lane_bits_equal(batch: dict, lane: int, single: dict) -> list:
+    """The leaves where lane ``lane`` of a batch differs from a single run
+    (an empty list when every leaf is bit-equal)."""
+    return [k for k in single
+            if not _bit_equal(batch[k][lane], single[k])]
+
+
+# name, PMs, VMs, tasks (None: --tasks), PM policy, spec.compact, lanes, and
+# the lane that must equal the main-path cell named last
+BATCHED_CELLS = (
+    ("batched_full_width", 500, 4096, None, "ondemand", -1,
+     FULL_WIDTH_SWEEP, 2, "full_width_dense"),
+    ("batched_above_gate", 1500, 8192, 100, "ondemand", -1,
+     ABOVE_GATE_SWEEP, 0, "above_gate"),
+)
+
+
+def batched_path(n_tasks: int, main: dict, main_bits: dict,
+                 device: str = "cuda") -> dict:
+    """Each batched cell once through ``simulate_batch``, the launch
+    counters set to 0 just before and read just after: every lane's
+    events, the passes, wall s, aggregate events/s (the lanes' events over
+    the wall) beside the single main-path cell's, and the hand-written
+    kernels' launches, one a pass for all lanes.  One lane must equal its
+    main-path cell (events, completions, rejections, every reading bit for
+    bit); in the full-width batch the last lane (500 MB/s, 400 MB) must
+    also equal its own single run, every leaf bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.core.loop.state import TASK_DONE, TASK_REJECTED
+    from repro_torch.core.trace import filter_fitting, gwa_like_trace
+
+    out = {}
+    for (name, n_pm, n_vm, tasks, pm_sched, compact, lanes, same_lane,
+         same_cell) in BATCHED_CELLS:
+        tasks = n_tasks if tasks is None else tasks
+        trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
+        spec, params = engine.make_cloud(
+            n_pm=n_pm, n_vm=n_vm, pm_cores=64.0, pm_sched=pm_sched,
+            compact=compact, max_events=4_000_000)
+        bp = sweep_params(params, lanes)
+        kernels.reset_launch_counts()
+        res, wall = run_batch(spec, trace, bp, device)
+        launches = dict(kernels.launch_counts(), **kernels.sub_launch_counts())
+        flat = _flat(res, spec)
+        events = flat["n_events"].astype(int).tolist()
+        ts = flat["state.task_state"]
+        done = (ts == TASK_DONE).sum(-1).tolist()
+        rejected = (ts == TASK_REJECTED).sum(-1).tolist()
+        passes = launches["masked_min"]
+        ref = main[same_cell]
+        rec = dict(n_pm=n_pm, n_vm=n_vm, tasks=int(trace.n), lanes=lanes,
+                   lane_events=events, passes=passes, wall_s=wall,
+                   aggregate_events_per_s=sum(events) / wall,
+                   single_cell=same_cell,
+                   single_events_per_s=ref["events_per_s"],
+                   launches=launches, completed=done, rejected=rejected,
+                   overflow=flat["overflow"].tolist())
+        print(json.dumps({name: rec}))
+        assert all(d + r == trace.n for d, r in zip(done, rejected)), (
+            f"{name}: unfinished tasks")
+        assert not any(rec["overflow"]), f"{name}: VM slot pool overflowed"
+        if device == "cuda":
+            # one launch a pass serves every lane; the pass count is the
+            # busiest lane's event count
+            assert passes == max(events), (name, passes, max(events))
+            if name == "batched_above_gate":
+                assert launches["maxmin_solve"] == 0, launches
+                assert 0 < launches["fill_plan"] <= passes, launches
+            else:
+                assert launches["maxmin_solve"] == passes, launches
+        # the lane of the main-path cell: the same events, completions,
+        # rejections and readings, bit for bit
+        got = {k[len("readings."):]: flat[k][same_lane].tobytes()
+               for k in flat if k.startswith("readings.")}
+        assert got == main_bits[same_cell], (
+            f"{name}: lane {same_lane} readings differ from {same_cell}")
+        assert (events[same_lane], done[same_lane], rejected[same_lane]) == (
+            ref["events"], ref["completed"], ref["rejected"]), (
+            name, events[same_lane], ref["events"])
+        rec[f"lane_{same_lane}_bit_equal_to_{same_cell}"] = True
+        if name == "batched_full_width":
+            last = len(events) - 1
+            one = sweep_params(params, {k: v[last] for k, v in lanes.items()})
+            single, single_wall = run(spec, trace, one, device)
+            bad = _lane_bits_equal(flat, last, _flat(single, spec))
+            assert not bad, (f"{name}: lane {last} differs from its single "
+                             f"run in {bad[:5]}")
+            rec.update({f"lane_{last}_bit_equal_to_single_run": True,
+                        f"lane_{last}_single_wall_s": single_wall})
+        out[name] = rec
+    return out
+
+
+MATRIX_TASKS = 200
+
+
+def batched_matrix(n_tasks: int = MATRIX_TASKS, device: str = "cuda",
+                   n_pm: int = 20, n_vm: int = 1024) -> dict:
+    """The scheduler tournament at the cross-check's size: 20 PM x 1024 VM,
+    the cross-check's trace, bucket 128 (given explicitly, so that each
+    lane compacts on the card), 15 lanes, one for each (vm_sched,
+    pm_sched) pair.  Twice on the card, bit-identical; once batched on the
+    CPU (integers and events exact, floats within rtol 1e-5 / atol 1e-6);
+    the five firstfit lanes each bit-equal to their single card run; at
+    least one migrating lane migrates."""
+    import warnings
+
+    from repro_torch.core import engine
+    from repro_torch.sched import registry
+    from repro_torch.core.trace import filter_fitting, gwa_like_trace
+
+    trace = filter_fitting(gwa_like_trace("das2", n_tasks, seed=7), 64.0)
+    spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
+                                     compact=128, max_events=4_000_000)
+    pairs = [(v, p) for v in range(len(registry.names("vm")))
+             for p in range(len(registry.names("pm")))]
+    bp = sweep_params(params, {"vm_sched": [v for v, _ in pairs],
+                               "pm_sched": [p for _, p in pairs]})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        a, wall_a = run_batch(spec, trace, bp, device)
+        b, wall_b = run_batch(spec, trace, bp, device)
+    assert not caught, ("batched_matrix: a compaction bucket overflowed",
+                        [str(w.message) for w in caught])
+    c, wall_c = run_batch(spec, trace, bp, "cpu")
+    fa, fb, fc = (_flat(x, spec) for x in (a, b, c))
+    for k in fa:
+        assert fa[k].tobytes() == fb[k].tobytes(), (
+            f"batched_matrix: two card runs differ in {k}")
+        if k.endswith(UNCOMPARED):
+            continue
+        if fa[k].dtype.kind == "f":
+            np.testing.assert_allclose(fa[k], fc[k], rtol=RTOL, atol=ATOL,
+                                       err_msg=f"batched_matrix card vs cpu")
+        else:
+            assert np.array_equal(fa[k].astype(np.int64),
+                                  fc[k].astype(np.int64)), (
+                f"batched_matrix card vs cpu: {k}")
+    singles = {}
+    for i, (v, p) in enumerate(pairs):
+        if v != 0:
+            continue
+        one = sweep_params(params, {"vm_sched": v, "pm_sched": p})
+        single, wall = run(spec, trace, one, device)
+        bad = _lane_bits_equal(fa, i, _flat(single, spec))
+        assert not bad, (f"batched_matrix: firstfit lane {i} differs from "
+                         f"its single run in {bad[:5]}")
+        singles[registry.names("pm")[p]] = wall
+    migrated = [bool(np.abs(fa["state.vm_saved_pr"][i]).sum() > 0)
+                for i in range(len(pairs))]
+    rec = dict(tasks=int(trace.n), lanes=[
+        f"{registry.names('vm')[v]}/{registry.names('pm')[p]}"
+        for v, p in pairs], lane_events=fa["n_events"].astype(int).tolist(),
+        card_wall_s=[wall_a, wall_b], cpu_wall_s=wall_c,
+        aggregate_events_per_s=float(fa["n_events"].sum()) / wall_a,
+        firstfit_single_wall_s=singles, migrated=migrated,
+        leaves_bit_equal_card_cpu=sum(fa[k].tobytes() == fc[k].tobytes()
+                                      for k in fa), leaves=len(fa))
+    print(json.dumps({"batched_matrix": rec}))
+    assert any(migrated[i] for i, (_, p) in enumerate(pairs) if p >= 2), (
+        "batched_matrix: no migrating lane migrated")
+    return rec
 
 
 def cross_check(pm_sched: str = "alwayson") -> dict:
@@ -1266,16 +1746,102 @@ def lm_phase(dev) -> dict:
     return out
 
 
+def dense_cell_worker(root: str, n_tasks: int, n_profile: int) -> dict:
+    """full_width_dense as the checkout at ``root`` runs it (its own
+    ``repro_torch``, built into its own ``build/``): ``n_tasks`` tasks
+    timed, their events and readings (hex of the bits), then
+    ``n_profile`` tasks under torch.profiler (launches and host reads a
+    pass, device idle share)."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve() / "src"))
+    from repro_torch.core import engine
+    from repro_torch.core.trace import filter_fitting, gwa_like_trace
+
+    assert pathlib.Path(engine.__file__).is_relative_to(
+        pathlib.Path(root).resolve()), engine.__file__
+    rec = {"root": str(root)}
+    for tasks in (n_tasks, n_profile):
+        trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
+        spec, params = engine.make_cloud(n_pm=500, n_vm=4096, pm_cores=64.0,
+                                         pm_sched="ondemand",
+                                         max_events=4_000_000)
+        if tasks == n_tasks:
+            res, wall = run(spec, trace, params, "cuda")
+            rec.update(tasks=int(trace.n), events=int(res.n_events),
+                       wall_s=wall, events_per_s=int(res.n_events) / wall,
+                       readings={k: v.cpu().numpy().tobytes().hex()
+                                 for k, v in res.readings(spec).items()})
+        else:
+            (res, _), prof = profiled(lambda: run(spec, trace, params,
+                                                  "cuda"))
+            events = int(res.n_events)
+            rec["profile"] = dict(
+                tasks=int(trace.n), events=events,
+                kernel_launches_per_pass=prof["kernel_launches"] / events,
+                host_reads_per_pass=prof["host_reads"] / events,
+                device_idle_share=prof["device_idle_share"],
+                wall_s=prof["wall_s"])
+    return rec
+
+
+def compare_parent(parent: str, n_tasks: int) -> dict:
+    """full_width_dense of the parent checkout at ``parent`` against this
+    checkout's, in turns parent, change, change, parent, each in a process
+    of its own: events and every reading bit for bit, host reads a pass no
+    more than the parent's, kernel launches a pass within 5%."""
+    runs = []
+    for root in (parent, ROOT, ROOT, parent):
+        done = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dense-worker",
+             str(root), "--tasks", str(n_tasks)], capture_output=True,
+            text=True, timeout=900)
+        assert done.returncode == 0, done.stderr[-4000:]
+        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    p, c = runs[0], runs[1]
+    lp = p["profile"]["kernel_launches_per_pass"]
+    lc = c["profile"]["kernel_launches_per_pass"]
+    out = dict(
+        turns=[dict(root=r["root"], events=r["events"], wall_s=r["wall_s"],
+                    events_per_s=r["events_per_s"], profile=r["profile"])
+               for r in runs],
+        events_equal=all(r["events"] == p["events"] for r in runs),
+        readings_bit_equal=all(r["readings"] == p["readings"] for r in runs),
+        host_reads_per_pass=[p["profile"]["host_reads_per_pass"],
+                             c["profile"]["host_reads_per_pass"]],
+        launches_per_pass=[lp, lc], launches_ratio=lc / lp)
+    print(json.dumps({"compare_parent": out}))
+    assert out["events_equal"] and out["readings_bit_equal"], out
+    assert (out["host_reads_per_pass"][1] <= out["host_reads_per_pass"][0]
+            ), out["host_reads_per_pass"]
+    assert abs(out["launches_ratio"] - 1.0) <= 0.05, out["launches_per_pass"]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tasks", type=int, default=2000,
                     help="DAS-2-like tasks of the full-width run")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"))
+    ap.add_argument("--compare-parent", metavar="DIR",
+                    help="only compare full_width_dense with the checkout "
+                         "at DIR (the parent commit, unpacked)")
+    ap.add_argument("--dense-worker", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.dense_worker:
+        print(json.dumps(dense_cell_worker(args.dense_worker, args.tasks,
+                                           CAPTURE_TASKS)))
+        return 0
+    if args.compare_parent:
+        record = {"card": card(),
+                  "compare_parent": compare_parent(
+                      args.compare_parent, args.tasks)}
+        out = pathlib.Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "compare_parent.json").write_text(json.dumps(record, indent=1))
+        return 0
     from repro_torch.kernels import _build
 
     record = {"card": card()}
@@ -1306,19 +1872,28 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t
         return out
 
-    kern, checks = timed("kernels", kernel_phase, dev, 300)
+    kern, checks = timed("kernels", kernel_phase, dev, CAPTURE_TASKS)
+    lane_kern, lane_checks = timed("lane_kernels", lane_kernel_phase, dev,
+                                   CAPTURE_TASKS)
     lm_kern, lm_checks = timed("lm_kernels", lm_kernel_phase, dev)
+    kern.update(lane_kern)
     kern.update(lm_kern)
+    checks.update(lane_checks)
     checks.update(lm_checks)
     record["kernel_checks"] = checks
     print(json.dumps({"kernel_checks": checks}))
-    record["main_path"] = timed("main_path", main_path, args.tasks)
+    main, main_bits = timed("main_path", main_path, args.tasks)
+    record["main_path"] = main
+    main.update(timed("batched_path", batched_path, args.tasks, main,
+                      main_bits))
+    record["batched_matrix"] = timed("batched_matrix", batched_matrix)
     record["cross_check"] = timed("cross_check", cross_check)
     record["cross_check_evacuate"] = timed("cross_check_evacuate",
                                            cross_check, "evacuate")
-    # 300 tasks: the capture's depth, so the busiest captured pass lies in
-    # the profiled window; above the gate the main path's 100
-    record["profile"] = timed("profile", profile_phase, 300, 100)
+    # the capture's depth, so the busiest captured pass lies in the
+    # profiled window; above the gate the main path's 100
+    record["profile"] = timed("profile", profile_phase, CAPTURE_TASKS, 100,
+                              CAPTURE_TASKS)
     record["main_path"].update(timed("lm", lm_phase, dev))
     record["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
@@ -1338,14 +1913,27 @@ def main() -> int:
                "linear_scan": ("src/repro_torch/csrc/scan.cu",
                                "src/repro/kernels/ssm.py:57",
                                "lm_serve_full_width")}
+    # the lane-axis rows: the same kernels, one launch for every lane of a
+    # batched cell
+    sources.update({
+        "maxmin_solve_lanes": ("src/repro_torch/csrc/maxmin.cu",
+                               "src/repro/kernels/maxmin.py:201",
+                               "batched_full_width"),
+        "fill_stats_lanes": ("src/repro_torch/csrc/maxmin.cu",
+                             "src/repro/kernels/maxmin.py:84",
+                             "batched_above_gate"),
+        "masked_min_lanes": ("src/repro_torch/csrc/horizon.cu",
+                             "src/repro/kernels/horizon.py:55",
+                             "batched_full_width")})
     rows = []
     for name, (src, replaces, cell) in sources.items():
         k = kern[name]
         b_ms, b_by = bound_ms(k["bytes"], k["ops"],
                               k.get("ops_per_s", H100_F32_OPS_PER_S))
+        counter = name.removesuffix("_lanes")
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=record["main_path"][cell]["launches"][name],
+            launches=record["main_path"][cell]["launches"][counter],
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=k.get("library_ms"),
             shape=k["shape"], main_path_cell=cell,
@@ -1354,7 +1942,8 @@ def main() -> int:
                                  "longest_segment", "device_ms", "host_us",
                                  "general_cases", "dense",
                                  "launch_floor_ms", "launch_floor_device_ms",
-                                 "launch_floor_host_us") if x in k}))
+                                 "launch_floor_host_us", "plan_device_ms",
+                                 "b1") if x in k}))
     record["kernels"] = rows
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

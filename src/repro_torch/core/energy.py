@@ -6,6 +6,13 @@ holds the meter coefficients as tensors, :class:`MeterState` the running
 readings carried through the event loop.  Every event horizon the engine
 builds one :class:`SimView` and calls :func:`observe`, which integrates power
 exactly over the piecewise-constant interval.
+
+Inside the event loop every tensor carries a leading lane axis (one lane a
+scenario of a batch): a state scalar is [B], a per-PM vector [B, P], and
+the power table's and meter coefficients' rows are [B, ...].  Each lane is
+computed as a single scenario would be, bit for bit: the float sums over
+an entity axis go through :func:`~repro_torch.core.arrays.lane_sum`, whose
+order does not depend on the lane count.
 """
 from __future__ import annotations
 
@@ -14,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .arrays import lane_sum, segment_sum
 
 
 def kahan_add(hi: torch.Tensor, lo: torch.Tensor, x: torch.Tensor):
@@ -41,7 +50,8 @@ def _f32(values, device="cpu") -> torch.Tensor:
 
 
 class PowerStateTable(NamedTuple):
-    """Per power-state consumption model: tensors of shape [N_PM_STATES]."""
+    """Per power-state consumption model: tensors of shape [N_PM_STATES]
+    ([B, N_PM_STATES] inside the event loop)."""
 
     mode: torch.Tensor      # i32 — MODEL_CONSTANT / MODEL_LINEAR
     p_min: torch.Tensor     # f32 watts
@@ -75,17 +85,15 @@ class PowerStateTable(NamedTuple):
             duration=_f32([0.0, boot_s, 0.0, shutdown_s]),
         )
 
-    def to(self, device) -> "PowerStateTable":
-        return PowerStateTable(*(x.to(device) for x in self))
-
 
 def instantaneous_power(table: PowerStateTable, state: torch.Tensor,
                         utilisation: torch.Tensor) -> torch.Tensor:
-    """Direct-meter power estimate per PM (W)."""
+    """Direct-meter power estimate per PM (W): ``state`` and
+    ``utilisation`` [B, P] against the table's [B, 4] rows."""
     s = state.long()
-    mode = table.mode[s]
-    p_min = table.p_min[s]
-    p_max = table.p_max[s]
+    mode = table.mode.gather(1, s)
+    p_min = table.p_min.gather(1, s)
+    p_max = table.p_max.gather(1, s)
     u = torch.clamp(utilisation, 0.0, 1.0)
     linear = p_min + u * (p_max - p_min)
     return torch.where(mode == MODEL_LINEAR, linear, p_min)
@@ -93,12 +101,14 @@ def instantaneous_power(table: PowerStateTable, state: torch.Tensor,
 
 def vm_power_attribution(pm_power, pm_idle, pm_span, pm_util, vm_rate_frac,
                          vm_host, vms_on_host) -> torch.Tensor:
-    """Adjusted-aggregation VM power (paper Eq. 6)."""
+    """Adjusted-aggregation VM power (paper Eq. 6), per lane: the per-VM
+    arguments [B, V], the per-PM ones [B, P]."""
     host = torch.clamp(vm_host, min=0).long()
     hosted = vm_host >= 0
-    variable = pm_span[host] * pm_util[host] * vm_rate_frac
-    idle_share = pm_idle[host] / torch.clamp(vms_on_host[host], min=1).to(
-        torch.float32)
+    variable = (pm_span.gather(1, host) * pm_util.gather(1, host)
+                * vm_rate_frac)
+    idle_share = pm_idle.gather(1, host) / torch.clamp(
+        vms_on_host.gather(1, host), min=1).to(torch.float32)
     return torch.where(hosted, variable + idle_share, 0.0)
 
 
@@ -116,6 +126,8 @@ class MeterAccum(NamedTuple):
         return MeterAccum(z(), z(), z())
 
     def integrate(self, power: torch.Tensor, dt: torch.Tensor) -> "MeterAccum":
+        """Add ``power * dt``: ``power`` [B, ...], ``dt`` [B]."""
+        dt = dt.reshape(dt.shape + (1,) * (power.dim() - dt.dim()))
         hi, lo = kahan_add(self.energy_hi, self.energy_lo, power * dt)
         return MeterAccum(hi, lo, power)
 
@@ -193,7 +205,8 @@ class MeterTopology:
 
 @dataclasses.dataclass(frozen=True)
 class MeterParams:
-    """Meter coefficients: ``f32[K]`` tensors, one entry per indirect meter."""
+    """Meter coefficients: ``f32[K]`` tensors, one entry per indirect meter
+    (``[B, K]`` inside the event loop)."""
 
     indirect_base: torch.Tensor = None
     indirect_coeff: torch.Tensor = None
@@ -206,16 +219,10 @@ class MeterParams:
         kw.update(overrides)
         return cls(**kw)
 
-    def to(self, device) -> "MeterParams":
-        return MeterParams(
-            indirect_base=torch.as_tensor(self.indirect_base,
-                                          dtype=torch.float32).to(device),
-            indirect_coeff=torch.as_tensor(self.indirect_coeff,
-                                           dtype=torch.float32).to(device))
-
 
 class MeterState(NamedTuple):
-    """Accumulated readings of the whole stack."""
+    """Accumulated readings of the whole stack (each leaf with a leading
+    lane axis inside the event loop)."""
 
     pm: MeterAccum          # [P] per-PM direct meters (exact integral)
     pm_sampled: torch.Tensor  # f32[P] the paper's polled meter (§3.3.2)
@@ -226,22 +233,26 @@ class MeterState(NamedTuple):
     pm_idle: MeterAccum     # [P] per-PM idle-component draw
 
     @staticmethod
-    def zero(topology: MeterTopology, n_pm: int, n_vm: int,
+    def zero(topology: MeterTopology, n_pm: int, n_vm: int, n_lanes: int,
              device="cpu") -> "MeterState":
+        """Zero readings of ``n_lanes`` lanes."""
+        B = n_lanes
         return MeterState(
-            pm=MeterAccum.zero((n_pm,), device),
-            pm_sampled=torch.zeros((n_pm,), dtype=torch.float32,
+            pm=MeterAccum.zero((B, n_pm), device),
+            pm_sampled=torch.zeros((B, n_pm), dtype=torch.float32,
                                    device=device),
-            vm=MeterAccum.zero((n_vm if topology.vm_direct else 0,), device),
-            group=MeterAccum.zero((topology.n_groups,), device),
-            total=MeterAccum.zero((), device),
-            indirect=MeterAccum.zero((topology.n_indirect,), device),
-            pm_idle=MeterAccum.zero((n_pm,), device),
+            vm=MeterAccum.zero((B, n_vm if topology.vm_direct else 0),
+                               device),
+            group=MeterAccum.zero((B, topology.n_groups), device),
+            total=MeterAccum.zero((B,), device),
+            indirect=MeterAccum.zero((B, topology.n_indirect), device),
+            pm_idle=MeterAccum.zero((B, n_pm), device),
         )
 
 
 class SimView(NamedTuple):
-    """The engine's observation surface for one event-horizon interval."""
+    """The engine's observation surface for one event-horizon interval
+    (each field with a leading lane axis: [B, P], [B, V] or [B])."""
 
     pm_power: torch.Tensor     # f32[P] instantaneous draw (W)
     pm_idle: torch.Tensor      # f32[P] state-dependent idle draw
@@ -258,13 +269,14 @@ class SimView(NamedTuple):
 
 def observe(topology: MeterTopology, mparams: MeterParams, view: SimView,
             dt: torch.Tensor, meters: MeterState) -> MeterState:
-    """Advance the whole meter stack over one event-horizon interval."""
+    """Advance the whole meter stack over one event-horizon interval
+    (``dt`` [B])."""
     pm = meters.pm.integrate(view.pm_power, dt)
     pm_sampled = meters.pm_sampled + torch.where(
-        view.tick, view.pm_power * view.period, 0.0)
+        view.tick[:, None], view.pm_power * view.period[:, None], 0.0)
     pm_idle = meters.pm_idle.integrate(view.pm_idle, dt)
 
-    it_power = torch.sum(view.pm_power)
+    it_power = lane_sum(view.pm_power)
     total = meters.total.integrate(it_power, dt)
 
     if topology.vm_direct:
@@ -278,13 +290,17 @@ def observe(topology: MeterTopology, mparams: MeterParams, view: SimView,
     if topology.n_groups:
         member = torch.from_numpy(topology.group_matrix(
             view.pm_power.shape[-1])).to(view.pm_power.device)
-        group = meters.group.integrate(member @ view.pm_power, dt)
+        # a product a lane: a [G, P] x [P] product rounds as the single
+        # scenario's, where one against [B, P] might not
+        group = meters.group.integrate(
+            torch.stack([member @ p for p in view.pm_power]), dt)
     else:
         group = meters.group
 
     if topology.n_indirect:
-        signals = torch.stack([it_power, view.n_hosted, view.n_queued])
-        drive = signals[topology.signal_index()]
+        signals = torch.stack([it_power, view.n_hosted, view.n_queued],
+                              dim=-1)
+        drive = signals[:, topology.signal_index()]
         ind_power = mparams.indirect_base + mparams.indirect_coeff * drive
         indirect = meters.indirect.integrate(ind_power, dt)
     else:
@@ -296,7 +312,8 @@ def observe(topology: MeterTopology, mparams: MeterParams, view: SimView,
 
 def meter_readings(topology: MeterTopology, meters: MeterState
                    ) -> dict[str, torch.Tensor]:
-    """Named energy readings (J) of a :class:`MeterState`."""
+    """Named energy readings (J) of a :class:`MeterState`, of one scenario
+    or with a leading batch axis on every reading."""
     out = {
         "pm": meters.pm.energy,
         "pm_idle": meters.pm_idle.energy,
@@ -306,7 +323,7 @@ def meter_readings(topology: MeterTopology, meters: MeterState
     if topology.vm_direct:
         out["vm"] = meters.vm.energy
         out["vm_unattributed"] = (meters.total.energy
-                                  - torch.sum(meters.vm.energy, dim=-1))
+                                  - lane_sum(meters.vm.energy))
     for g, _pms in enumerate(topology.pm_groups):
         out[f"group{g}"] = meters.group.energy[..., g]
     for k, m in enumerate(topology.indirect):
@@ -322,11 +339,9 @@ def tenant_energy(readings: dict, vm_tenant, n_tenants: int) -> torch.Tensor:
     ["vm_unattributed"]`` stays with the operator.  Single-scenario
     readings; VM slots must not be reused across tenants within the
     billing window."""
-    from .arrays import segment_sum
-
     vm = torch.as_tensor(readings["vm"], dtype=torch.float32)
     owner = torch.as_tensor(vm_tenant, dtype=torch.int32, device=vm.device)
     owned = owner >= 0
     seg = torch.where(owned, owner, n_tenants)   # n_tenants = drop bucket
-    return segment_sum(torch.where(owned, vm, 0.0), seg,
-                       n_tenants + 1)[:n_tenants]
+    return segment_sum(torch.where(owned, vm, 0.0)[None], seg[None],
+                       n_tenants + 1)[0, :n_tenants]

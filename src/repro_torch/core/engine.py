@@ -1,5 +1,5 @@
 """The IaaS cloud engine (paper §3.1-§3.5 in one event loop), port of
-``repro.core.engine``'s single-scenario path.
+``repro.core.engine``'s single-scenario and batched paths.
 
 * :class:`CloudSpec` — shapes, topology and algorithm choices.  The
   reference's ``backend`` switch has no counterpart: the device of the
@@ -11,6 +11,13 @@
   runs from the host; the host reads the loop condition once per body,
   together with the compaction verdict (an overflowing bucket replays
   the scenario dense, with a ``RuntimeWarning``).
+* :func:`simulate_batch` — the same for a batch of scenarios, one lane
+  each, from :func:`stack_params` / :func:`stack_traces` or any
+  :class:`Trace` / :class:`CloudParams` leaf with a leading batch axis
+  (the others broadcast).  The loop runs every lane in the same passes,
+  so each kernel launch serves all lanes; lane ``i`` equals
+  ``simulate`` of lane ``i`` bit for bit.  :func:`simulate` is the batch
+  of one lane, squeezed at its boundary: one copy of the stages.
 * :func:`start_migration` / :func:`make_allocation` — out-of-loop state
   edits (a live migration, an expiring core reservation).
 
@@ -36,12 +43,15 @@ from . import machine as mc
 from .energy import (PM_OFF, PM_RUNNING, MeterAccum, MeterParams, MeterState,
                      MeterTopology, PowerStateTable, meter_readings)
 from .fairshare import SCHEDULERS
-from .loop.state import BIG as _BIG, TASK_PENDING, TASK_REJECTED, CloudState
+from .loop.state import (BIG as _BIG, TASK_PENDING, TASK_REJECTED, CloudState,
+                         add_lane, drop_lane)
 
 __all__ = ["CloudSpec", "CloudParams", "CloudState", "CloudResult", "Trace",
-           "make_cloud", "init_state", "simulate", "dense_spec",
-           "start_migration", "make_allocation", "params_from_numpy",
-           "trace_from_numpy", "state_from_numpy", "to_numpy"]
+           "LaneParams", "make_cloud", "stack_params", "stack_traces",
+           "lane_params", "init_state", "simulate", "simulate_batch",
+           "dense_spec", "start_migration", "make_allocation",
+           "params_from_numpy", "trace_from_numpy", "state_from_numpy",
+           "to_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,14 +85,20 @@ class CloudSpec:
         return mc.SpreaderLayout(self.n_pm, self.n_vm)
 
 
-def _sched_code(value, layer: str) -> int:
-    """A scheduler name or code as its registered integer code."""
+def _sched_code(value, layer: str):
+    """A scheduler name or code as its registered integer code; a batch of
+    names or codes (a list, array or tensor with a leading batch axis) as
+    an int32 tensor of codes."""
     names = _policy_registry.names(layer)
     if isinstance(value, str):
         if value not in names:
             raise ValueError(f"unknown scheduler {value!r}; one of {names}")
         return names.index(value)
-    code = int(value)
+    arr = np.asarray(value.cpu() if torch.is_tensor(value) else value)
+    if arr.ndim:
+        return torch.tensor([_sched_code(v, layer) for v in arr.tolist()],
+                            dtype=torch.int32)
+    code = int(arr)
     if not 0 <= code < len(names):
         raise ValueError(f"scheduler code {code} out of range; "
                          f"0..{len(names) - 1} index {names}")
@@ -91,10 +107,13 @@ def _sched_code(value, layer: str) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class CloudParams:
-    """Continuous cloud parameters (host numbers) and the policy codes.
+    """Continuous cloud parameters and the policy codes.
 
-    ``power`` and ``meter`` hold tensors; :func:`simulate` moves them to the
-    run's device."""
+    A scalar is a host number, or a tensor / array whose leading axis is a
+    batch for :func:`simulate_batch` (then ``vm_sched`` / ``pm_sched`` hold
+    an int32 tensor of codes); ``power`` and ``meter`` hold tensors whose
+    rows may carry the batch axis likewise.  The engine reads them through
+    :func:`lane_params`."""
 
     pm_cores: float = 64.0
     perf_core: float = 1.0
@@ -131,10 +150,6 @@ class CloudParams:
             kw["meter"] = MeterParams.for_topology(spec.meters)
         return cls(**kw)
 
-    def to(self, device) -> "CloudParams":
-        return dataclasses.replace(self, power=self.power.to(device),
-                                   meter=self.meter.to(device))
-
 
 def make_cloud(**kw) -> tuple[CloudSpec, CloudParams]:
     """Build a (CloudSpec, CloudParams) pair from one flat kwargs dict."""
@@ -149,6 +164,55 @@ def make_cloud(**kw) -> tuple[CloudSpec, CloudParams]:
     return spec, params
 
 
+_FLOAT_FIELDS = ("pm_cores", "perf_core", "net_bw", "repo_bw", "image_mb",
+                 "boot_work", "vm_mem_mb", "latency_s", "metering_period",
+                 "hidden_work_on", "hidden_work_off",
+                 "consolidate_idle_frac")
+_CODE_FIELDS = ("vm_sched", "pm_sched")
+
+
+def _as_tensor(x, dtype=None) -> torch.Tensor:
+    """``x`` (number, array or tensor) as a CPU-or-device tensor."""
+    if torch.is_tensor(x):
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype)
+
+
+def _leaves(params: CloudParams):
+    """``(name, value, dims of one scenario, dtype)`` of every leaf."""
+    for f in _FLOAT_FIELDS:
+        yield f, getattr(params, f), 0, torch.float32
+    for f in _CODE_FIELDS:
+        yield f, getattr(params, f), 0, torch.int32
+    for k in PowerStateTable._fields:
+        yield f"power.{k}", getattr(params.power, k), 1, None
+    for k in ("indirect_base", "indirect_coeff"):
+        yield f"meter.{k}", getattr(params.meter, k), 1, torch.float32
+
+
+def _grouped(leaves: dict) -> dict:
+    """Keyword arguments of :class:`CloudParams` from ``{leaf name:
+    tensor}`` (the names of :func:`_leaves`)."""
+    kw = {f: leaves[f] for f in _FLOAT_FIELDS + _CODE_FIELDS}
+    kw["power"] = PowerStateTable(*(leaves[f"power.{k}"]
+                                    for k in PowerStateTable._fields))
+    kw["meter"] = MeterParams(indirect_base=leaves["meter.indirect_base"],
+                              indirect_coeff=leaves["meter.indirect_coeff"])
+    return kw
+
+
+def stack_params(params) -> CloudParams:
+    """Stack parameter points leaf-wise along a new leading batch axis
+    (input to :func:`simulate_batch`): every scalar becomes an f32 [B]
+    tensor (the codes int32), every table row [B, ...]."""
+    rows = [{name: _as_tensor(value, dtype).cpu()
+             for name, value, _, dtype in _leaves(p)} for p in params]
+    if not rows:
+        raise ValueError("stack_params needs at least one CloudParams")
+    return CloudParams(**_grouped({k: torch.stack([r[k] for r in rows])
+                                   for k in rows[0]}))
+
+
 class Trace(NamedTuple):
     """Task trace: one VM request per task (paper §4.2.2 protocol).  The
     generators in :mod:`repro_torch.core.trace` fill it with numpy arrays;
@@ -160,7 +224,8 @@ class Trace(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.arrival.shape[0]
+        """Tasks per scenario (the last axis; a batch leads it)."""
+        return self.arrival.shape[-1]
 
     def to(self, device) -> "Trace":
         return Trace(*(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
@@ -168,7 +233,115 @@ class Trace(NamedTuple):
                        .to(device) for x in self))
 
 
+def stack_traces(traces) -> Trace:
+    """Stack equal-length traces along a new leading batch axis (input to
+    :func:`simulate_batch`); f32 [B, T] CPU tensors."""
+    traces = list(traces)
+    if not traces:
+        raise ValueError("stack_traces needs at least one trace")
+    lengths = [t.n for t in traces]
+    if len(set(lengths)) > 1:
+        raise ValueError(
+            f"stack_traces needs equal-length traces (one task axis for the "
+            f"batch), got lengths {lengths}; pad the traces to one length")
+    return Trace(*(torch.stack([_as_tensor(getattr(t, k), torch.float32)
+                                .cpu() for t in traces])
+                   for k in Trace._fields))
+
+
+class LaneParams(NamedTuple):
+    """:class:`CloudParams` as the event loop reads them, one lane a
+    scenario: every scalar an f32 [B] tensor on the run's device, the
+    power table's and meter coefficients' rows [B, ...], the policy codes
+    both on the device (int32 [B], for the per-lane selects) and on the
+    host (read once per call; the stages dispatch on them).  Built by
+    :func:`lane_params`."""
+
+    pm_cores: torch.Tensor
+    perf_core: torch.Tensor
+    net_bw: torch.Tensor
+    repo_bw: torch.Tensor
+    image_mb: torch.Tensor
+    boot_work: torch.Tensor
+    vm_mem_mb: torch.Tensor
+    latency_s: torch.Tensor
+    metering_period: torch.Tensor
+    hidden_work_on: torch.Tensor
+    hidden_work_off: torch.Tensor
+    consolidate_idle_frac: torch.Tensor
+    vm_sched: torch.Tensor
+    pm_sched: torch.Tensor
+    power: PowerStateTable
+    meter: MeterParams
+    vm_codes: tuple
+    pm_codes: tuple
+    cpu_cap: torch.Tensor      # pm_cores * perf_core
+    util_cap: torch.Tensor     # cpu_cap, at least 1e-30 (observe's divisor)
+
+
+def _ndim(x) -> int:
+    return x.dim() if torch.is_tensor(x) else np.ndim(x)
+
+
+def lane_params(params: CloudParams, n_lanes: int, device) -> LaneParams:
+    """The lane view of ``params`` for a batch of ``n_lanes``: each leaf
+    with a leading batch axis of ``n_lanes`` keeps it, each other leaf
+    broadcasts to every lane."""
+    B = n_lanes
+    dev = torch.device(device)
+    out = {}
+    for name, value, dims, dtype in _leaves(params):
+        t = _as_tensor(value, dtype).cpu()
+        if t.dim() == dims:
+            t = t.expand((B,) + tuple(t.shape))
+        elif t.dim() != dims + 1 or t.shape[0] != B:
+            raise ValueError(f"CloudParams.{name} has shape "
+                             f"{tuple(t.shape)}; expected {dims} dim(s) of "
+                             f"one scenario, or a leading batch axis of "
+                             f"{B}")
+        out[name] = t.contiguous()
+    kw = _grouped({k: t.to(dev) for k, t in out.items()})
+    kw["vm_codes"] = tuple(out["vm_sched"].tolist())
+    kw["pm_codes"] = tuple(out["pm_sched"].tolist())
+    kw["cpu_cap"] = kw["pm_cores"] * kw["perf_core"]
+    kw["util_cap"] = torch.clamp_min(kw["cpu_cap"], 1e-30)
+    return LaneParams(**kw)
+
+
+def _batch_size(trace: Trace, params: CloudParams) -> int:
+    """The batch size of ``simulate_batch``'s inputs: the leading axis of
+    every batched leaf, which must agree."""
+    sizes = {}
+    for k in Trace._fields:
+        x = getattr(trace, k)
+        if _ndim(x) > 1:
+            sizes[f"trace.{k}"] = int(x.shape[0])
+    for name, value, dims, _ in _leaves(params):
+        if _ndim(value) > dims:
+            sizes[f"params.{name}"] = int(_as_tensor(value).shape[0])
+    if not sizes:
+        raise ValueError(
+            "simulate_batch needs at least one batched leaf (leading batch "
+            "axis) in `trace` or `params`; use simulate() for a single "
+            "scenario")
+    if len(set(sizes.values())) > 1:
+        raise ValueError(f"simulate_batch: the batched leaves disagree on "
+                         f"the batch size: {sizes}")
+    return next(iter(sizes.values()))
+
+
+def _trace_lanes(trace: Trace, n_lanes: int, device) -> Trace:
+    """Every field of ``trace`` as f32 [B, T] on ``device`` (an unbatched
+    field broadcast to every lane, as a view)."""
+    trace = trace.to(device)
+    return Trace(*(x if x.dim() == 2 else x.expand(n_lanes, x.shape[-1])
+                   for x in trace))
+
+
 class CloudResult(NamedTuple):
+    """What a run returns; every leaf of a :func:`simulate_batch` result
+    has the batch as its leading axis."""
+
     state: CloudState
     completion: torch.Tensor   # f32[T] task completion times (inf: unfinished)
     rejected: torch.Tensor     # bool[T]
@@ -180,7 +353,7 @@ class CloudResult(NamedTuple):
     overflow: torch.Tensor
 
     def readings(self, spec: CloudSpec) -> dict[str, torch.Tensor]:
-        """Named energy readings of the stack."""
+        """Named energy readings of the stack ([B, ...] for a batch)."""
         return meter_readings(spec.meters, self.meters)
 
 
@@ -193,26 +366,27 @@ def _check_meter_params(spec: CloudSpec, params: CloudParams) -> None:
                              f"spec.meters declares {K} indirect meter(s)")
 
 
-def init_state(spec: CloudSpec, trace: Trace,
-               params: CloudParams | None = None, *,
-               device=None) -> CloudState:
-    dev = resolve_device(device)
-    if params is None:
-        params = CloudParams.for_spec(spec)
-    _check_meter_params(spec, params)
-    P, V, T = spec.n_pm, spec.n_vm, trace.n
+def _init_lanes(spec: CloudSpec, T: int, params: LaneParams,
+                dev) -> CloudState:
+    """The initial state of every lane of ``params``."""
+    B = params.pm_cores.shape[0]
+    P, V = spec.n_pm, spec.n_vm
     F = V + P
 
     def full(n, value, dtype):
-        return torch.full((n,), value, dtype=dtype, device=dev)
+        return torch.full((B, n), value, dtype=dtype, device=dev)
 
-    def scalar(value, dtype=torch.float32):
-        return torch.tensor(value, dtype=dtype, device=dev)
+    def lanes(value, dtype=torch.float32):
+        return torch.full((B,), value, dtype=dtype, device=dev)
 
-    start_running = params.pm_sched in _policy_registry.start_running_codes()
+    # policies registered with starts_running=True (always-on) begin with
+    # the fleet powered on, lane by lane
+    start = set(_policy_registry.start_running_codes())
+    pstate0 = torch.tensor([PM_RUNNING if c in start else PM_OFF
+                            for c in params.pm_codes], dtype=torch.int8)
     period = params.metering_period
     return CloudState(
-        t=scalar(0.0), t_c=scalar(0.0), n_events=scalar(0, torch.int32),
+        t=lanes(0.0), t_c=lanes(0.0), n_events=lanes(0, torch.int32),
         f_pr=full(F, 0.0, torch.float32), f_total=full(F, 0.0, torch.float32),
         f_pl=full(F, _BIG, torch.float32), f_prov=full(F, 0, torch.int32),
         f_cons=full(F, 0, torch.int32), f_active=full(F, False, torch.bool),
@@ -227,15 +401,27 @@ def init_state(spec: CloudSpec, trace: Trace,
         vm_expiry=full(V, math.inf, torch.float32),
         vm_saved_pr=full(V, 0.0, torch.float32),
         vm_mig_dst=full(V, 0, torch.int32),
-        pstate=full(P, PM_RUNNING if start_running else PM_OFF, torch.int8),
+        pstate=pstate0[:, None].expand(B, P).contiguous().to(dev),
         pstate_end=full(P, math.inf, torch.float32),
-        free_cores=full(P, params.pm_cores, torch.float32),
-        meters=MeterState.zero(spec.meters, P, V, device=dev),
-        meter_next=scalar(period if period > 0 else math.inf),
+        free_cores=params.pm_cores[:, None].expand(B, P).contiguous(),
+        meters=MeterState.zero(spec.meters, P, V, B, device=dev),
+        meter_next=torch.where(period > 0, period, math.inf),
         processed=full(spec.layout.S, 0.0, torch.float32),
-        overflow=scalar(False, torch.bool),
-        running=scalar(True, torch.bool),
+        overflow=lanes(False, torch.bool),
+        running=lanes(True, torch.bool),
     )
+
+
+def init_state(spec: CloudSpec, trace: Trace,
+               params: CloudParams | None = None, *,
+               device=None) -> CloudState:
+    """The initial state of one scenario."""
+    dev = resolve_device(device)
+    if params is None:
+        params = CloudParams.for_spec(spec)
+    _check_meter_params(spec, params)
+    return drop_lane(_init_lanes(spec, trace.n, lane_params(params, 1, dev),
+                                 dev))
 
 
 def dense_spec(spec: CloudSpec) -> CloudSpec:
@@ -255,29 +441,32 @@ def _warn_dense_rerun(spec: CloudSpec, dev):
 
 
 def _simulate_impl(spec, trace, params, state, t_stop, dev):
-    """The staged pipeline run from the host; returns ``(result, ok)``,
-    ``ok`` the compaction verdict over every pass (None when compaction is
-    off).  The passes fold the verdict on the device; the host reads it
-    in the same read as the loop condition, once per body, and stops at
-    the first body whose bucket overflowed, since that run is replayed
-    dense anyway."""
-    st = init_state(spec, trace, params, device=dev) if state is None else state
+    """The staged pipeline run from the host over every lane of ``params``
+    (a :class:`LaneParams`; ``trace`` [B, T] on ``dev``); returns
+    ``(result, ok)``, ``ok`` the compaction verdict over every pass and
+    lane (None when compaction is off).  The passes fold the verdict on
+    the device; the host reads it in the same read as the lanes' loop
+    condition, once per body, and stops at the first body whose bucket
+    overflowed in any lane, since the batch is replayed dense anyway."""
+    B = params.pm_cores.shape[0]
+    st = _init_lanes(spec, trace.n, params, dev) if state is None else state
     st = loop.management_pass(spec, params, trace, st)
-    t_stop = torch.tensor(t_stop, dtype=torch.float32, device=dev)
+    t_stop = torch.full((B,), t_stop, dtype=torch.float32, device=dev)
     body = loop.make_body(spec, params, trace, t_stop)
-    ok = None        # the device verdict of the passes so far
+    ok = None        # the device verdict of the passes so far, a lane each
     while True:
-        go = st.running & (st.n_events < spec.max_events)
-        if ok is None:
-            if not bool(go):
-                break
-        else:
-            # one read for both: 1 go on, 0 settled, -1 a bucket overflowed
-            code = int(torch.where(ok, go.to(torch.int8), -1))
-            if code <= 0:
-                ok = code == 0
-                break
-        st, ok_body = body(st)
+        go = loop.lanes_going(spec, st)
+        # one read: B every lane goes on, 1..B-1 some do (the body then
+        # keeps the settled lanes), 0 none, -1 a bucket overflowed
+        code = go.sum()
+        if ok is not None:
+            code = torch.where(ok.all(), code, -1)
+        n_go = int(code)
+        if n_go <= 0:
+            if ok is not None:
+                ok = n_go == 0
+            break
+        st, ok_body = body(st, None if n_go == B else go)
         if ok_body is not None:
             ok = ok_body if ok is None else ok & ok_body
     return CloudResult(
@@ -293,6 +482,17 @@ def _simulate_impl(spec, trace, params, state, t_stop, dev):
     ), ok
 
 
+def _run_lanes(spec, trace, params, state, t_stop, dev) -> CloudResult:
+    """:func:`_simulate_impl`, replayed dense (under a ``RuntimeWarning``)
+    when a lane's compaction bucket overflowed."""
+    res, ok = _simulate_impl(spec, trace, params, state, t_stop, dev)
+    if ok is False:       # a bucket overflowed: replay the whole batch dense
+        _warn_dense_rerun(spec, dev)
+        res, _ = _simulate_impl(dense_spec(spec), trace, params, None,
+                                t_stop, dev)
+    return res
+
+
 def simulate(spec: CloudSpec, trace: Trace,
              params: CloudParams | None = None,
              state: CloudState | None = None,
@@ -304,20 +504,40 @@ def simulate(spec: CloudSpec, trace: Trace,
     must already lie on that device, and runs dense from the start, as in
     the reference (whose donated state makes a replay impossible).  When
     a compaction bucket overflows the scenario is replayed dense under a
-    ``RuntimeWarning``; the results are bit-identical either way."""
+    ``RuntimeWarning``; the results are bit-identical either way.  The run
+    is the batch of one lane of :func:`simulate_batch`, squeezed."""
     dev = resolve_device(device)
     if params is None:
         params = CloudParams.for_spec(spec)
-    params = params.to(dev)
-    trace = trace.to(dev)
+    _check_meter_params(spec, params)
     if state is not None:
         spec = dense_spec(spec)
-    res, ok = _simulate_impl(spec, trace, params, state, t_stop, dev)
-    if ok is False:       # a bucket overflowed: replay dense
-        _warn_dense_rerun(spec, dev)
-        res, _ = _simulate_impl(dense_spec(spec), trace, params, None,
-                                t_stop, dev)
-    return res
+        state = add_lane(state)
+    res = _run_lanes(spec, _trace_lanes(trace, 1, dev),
+                     lane_params(params, 1, dev), state, t_stop, dev)
+    return drop_lane(res)
+
+
+def simulate_batch(spec: CloudSpec, trace: Trace, params: CloudParams,
+                   t_stop: float = math.inf, *, device=None) -> CloudResult:
+    """Batched scenario sweep: every :class:`Trace` and :class:`CloudParams`
+    leaf that carries a leading batch axis is a lane's own, the others
+    broadcast (see :func:`stack_params` / :func:`stack_traces`).
+
+    Returns a :class:`CloudResult` whose every leaf has the batch as its
+    leading axis; lane ``i`` equals :func:`simulate` of lane ``i`` bit for
+    bit.  The lanes run in the same passes, so each kernel launch of a
+    pass serves all of them, and the host reads once a body for all.
+    Raises ``ValueError`` when no leaf is batched or the batched leaves
+    disagree on the batch size.  A compaction bucket that overflows in
+    any lane replays the whole batch with ``compact=0`` under a
+    ``RuntimeWarning`` (bit-identical results).  ``device`` as in
+    :func:`simulate`."""
+    dev = resolve_device(device)
+    B = _batch_size(trace, params)
+    _check_meter_params(spec, params)
+    return _run_lanes(spec, _trace_lanes(trace, B, dev),
+                      lane_params(params, B, dev), None, t_stop, dev)
 
 
 def start_migration(spec: CloudSpec, params: CloudParams, st: CloudState,
@@ -326,14 +546,18 @@ def start_migration(spec: CloudSpec, params: CloudParams, st: CloudState,
 
     The out-of-loop shim over the masked-migration primitive
     (:func:`repro_torch.core.loop.migrate.migrate_one`) that the in-loop
-    policies ``consolidate`` / ``defrag`` / ``evacuate`` issue too.  The
-    caller must ensure the destination fits; cores move src -> dst at
-    once.  ``v`` and ``dst`` may be numbers or tensors on ``st``'s
-    device."""
+    policies ``consolidate`` / ``defrag`` / ``evacuate`` issue too, on one
+    scenario's state.  The caller must ensure the destination fits; cores
+    move src -> dst at once.  ``v`` and ``dst`` may be numbers or tensors
+    on ``st``'s device."""
     from .loop.migrate import migrate_one
-    true = torch.ones((), dtype=torch.bool, device=st.running.device)
-    st = migrate_one(spec, params, st, v, dst, true)
-    return st._replace(running=true)
+    dev = st.running.device
+    lanes = add_lane(st)
+    true = torch.ones((1,), dtype=torch.bool, device=dev)
+    out = migrate_one(spec, lane_params(params, 1, dev), lanes,
+                      torch.as_tensor(v, device=dev),
+                      torch.as_tensor(dst, device=dev), true)
+    return drop_lane(out._replace(running=true))
 
 
 def make_allocation(spec: CloudSpec, st: CloudState, pm, cores, expiry
@@ -378,14 +602,19 @@ def _tensor(x, device) -> torch.Tensor:
 def params_from_numpy(flat: dict) -> CloudParams:
     """:class:`CloudParams` from ``{"pm_cores": ..., "power.p_min": ...,
     "meter.indirect_base": ...}``; scalars become host numbers, the power
-    table and meter coefficients CPU tensors."""
+    table and meter coefficients CPU tensors.  A batched scalar (an array
+    with a leading batch axis) becomes a CPU tensor: f32, or int32 codes."""
     kw = {}
     for f in dataclasses.fields(CloudParams):
         if f.name in ("power", "meter"):
             continue
         value = np.asarray(flat[f.name])
-        kw[f.name] = (int(value) if f.name in ("vm_sched", "pm_sched")
-                      else float(value))
+        code = f.name in ("vm_sched", "pm_sched")
+        if value.ndim:
+            kw[f.name] = _tensor(value.astype(np.int32 if code
+                                              else np.float32), "cpu")
+        else:
+            kw[f.name] = int(value) if code else float(value)
     kw["power"] = PowerStateTable(*(_tensor(flat[f"power.{k}"], "cpu")
                                     for k in PowerStateTable._fields))
     kw["meter"] = MeterParams(

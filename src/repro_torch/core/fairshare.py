@@ -12,6 +12,10 @@ call, then one :func:`~repro_torch.kernels.maxmin.fill_round` per round
 (looked up at each call, so a test can count the rounds by replacing it).
 The reference's ``backend`` switch has no counterpart: the tensors' device
 picks the kernel (CUDA) or its plain version (CPU).
+
+Every argument carries a leading lane axis (flows [B, C], spreaders
+[B, S]); one launch serves all lanes, and each lane's rates are the single
+lane's.
 """
 from __future__ import annotations
 
@@ -25,13 +29,15 @@ from .arrays import segment_sum
 
 def _equal_share_offers(provider, consumer, live, perf):
     """Per-flow (provider-side, consumer-side) equal-split offered rates."""
-    S = perf.shape[0]
+    S = perf.shape[-1]
     livef = live.to(torch.float32)
     cnt_p = segment_sum(livef, provider, S, where=live)
     cnt_c = segment_sum(livef, consumer, S, where=live)
     prov, cons = provider.long(), consumer.long()
-    offer_p = perf[prov] / torch.clamp_min(cnt_p[prov], 1.0)
-    offer_c = perf[cons] / torch.clamp_min(cnt_c[cons], 1.0)
+    offer_p = perf.gather(1, prov) / torch.clamp_min(cnt_p.gather(1, prov),
+                                                     1.0)
+    offer_c = perf.gather(1, cons) / torch.clamp_min(cnt_c.gather(1, cons),
+                                                     1.0)
     return offer_p, offer_c
 
 
@@ -47,7 +53,7 @@ def equal_share_rates(provider, consumer, p_l, live, perf, *,
 def maxmin_rates(provider, consumer, p_l, live, perf, *,
                  max_iters: int = 64, rel_eps: float = 1e-5):
     """Max-min fair rates by progressive filling (see module docstring)."""
-    if kmaxmin.solve_fits(provider.shape[0], perf.shape[0]):
+    if kmaxmin.solve_fits(provider.shape[-1], perf.shape[-1]):
         return kmaxmin.maxmin_solve(provider, consumer, p_l, live, perf,
                                     max_iters=max_iters, rel_eps=rel_eps)
     return kmaxmin.progressive_filling(provider, consumer, p_l, live, perf,

@@ -2,7 +2,9 @@
 propagation (port of ``repro.core.influence``).
 
 The fixpoint loop runs on the host: each round is one scatter-min on the
-device and one read of "did any label change".
+device over every lane and one read of "did any lane's label change".  A
+lane whose labels have settled is a fixed point of the round, so the
+rounds that other lanes still need leave it bit for bit.
 """
 from __future__ import annotations
 
@@ -15,20 +17,22 @@ _BIG = 2 ** 30
 
 def influence_labels(provider, consumer, live, num_spreaders: int, *,
                      max_rounds: int = 0) -> torch.Tensor:
-    """i32[S] group labels (min spreader index in the component)."""
+    """i32[B, S] group labels (min spreader index in the component) of the
+    flows ``provider`` / ``consumer`` / ``live`` [B, F]."""
     S = num_spreaders
     if max_rounds <= 0:
         max_rounds = S
+    B = provider.shape[0]
     dev = provider.device
-    label = torch.arange(S, dtype=torch.int32, device=dev)
+    label = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     prov = torch.where(live, provider, 0).long()
     cons = torch.where(live, consumer, 0).long()
-    ends = torch.cat([prov, cons])
+    ends = torch.cat([prov, cons], dim=1)
     for _ in range(max_rounds):
-        edge = torch.minimum(label[prov], label[cons])
+        edge = torch.minimum(label.gather(1, prov), label.gather(1, cons))
         edge = torch.where(live, edge, _BIG)
-        new = label.scatter_reduce(0, ends, torch.cat([edge, edge]), "amin",
-                                   include_self=True)
+        new = label.scatter_reduce(1, ends, torch.cat([edge, edge], dim=1),
+                                   "amin", include_self=True)
         changed = bool((new != label).any())
         label = new
         if not changed:
@@ -37,7 +41,9 @@ def influence_labels(provider, consumer, live, num_spreaders: int, *,
 
 
 def coupled_vm_counts(labels, host_cpu, vm_spreader, vm_host, n_pm: int):
-    """Eq. 6 group membership: ``(in_group bool[V], vms_on_host i32[P])``."""
-    in_group = labels[host_cpu.long()] == labels[vm_spreader.long()]
+    """Eq. 6 group membership: ``(in_group bool[B, V], vms_on_host
+    i32[B, P])``."""
+    in_group = (labels.gather(1, host_cpu.long())
+                == labels.gather(1, vm_spreader.long()))
     vms_on_host = segment_sum(in_group.to(torch.int32), vm_host, n_pm)
     return in_group, vms_on_host

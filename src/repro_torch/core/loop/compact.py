@@ -24,6 +24,9 @@ The buckets are built without a host read: ``torch.nonzero`` and boolean
 indexing synchronise with the host on CUDA, so an index's place in its
 bucket is its rank in a cumulative sum, scattered into a fixed buffer
 with a drop slot (ascending by construction).
+
+Every lane of a batch has buckets of its own (each field [B, bucket]),
+ranked along its own row, and a verdict of its own (``ok`` [B]).
 """
 from __future__ import annotations
 
@@ -67,23 +70,24 @@ class Compact(NamedTuple):
     """One pass's active-set gather (built by ``advance``; the driver folds
     its ``ok`` through ``StageCtx.compact``)."""
 
-    fidx: torch.Tensor    # i32[FB] bucket -> dense flow index (F = fill)
-    fvalid: torch.Tensor  # bool[FB] lane holds a real active flow
-    sidx: torch.Tensor    # i32[SB] bucket -> dense spreader index (S = fill)
-    smap: torch.Tensor    # i32[S] dense spreader -> bucket slot (SB = none)
-    bprov: torch.Tensor   # i32[FB] provider bucket slots (SB on fill lanes)
-    bcons: torch.Tensor   # i32[FB] consumer bucket slots (SB on fill lanes)
-    ok: torch.Tensor      # bool — both buckets held every active entry
+    fidx: torch.Tensor    # i32[B, FB] bucket -> dense flow index (F = fill)
+    fvalid: torch.Tensor  # bool[B, FB] slot holds a real active flow
+    sidx: torch.Tensor    # i32[B, SB] bucket -> dense spreader (S = fill)
+    smap: torch.Tensor    # i32[B, S] dense spreader -> bucket slot (SB = none)
+    bprov: torch.Tensor   # i32[B, FB] provider bucket slots (SB on fill slots)
+    bcons: torch.Tensor   # i32[B, FB] consumer bucket slots (SB on fill slots)
+    ok: torch.Tensor      # bool[B] — both buckets held every active entry
 
 
 def _ascending(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """``jnp.nonzero(mask, size=size, fill_value=fill)[0]`` as int32: the
-    True lanes' indices in ascending order, the first ``size`` of them,
-    ``fill`` past the count."""
-    n = mask.shape[0]
-    rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    """``jnp.nonzero(mask, size=size, fill_value=fill)[0]`` of each row of
+    ``mask`` [B, n], as int32 [B, size]: the True entries' indices in
+    ascending order, the first ``size`` of them, ``fill`` past the
+    count."""
+    B, n = mask.shape
+    rank = torch.cumsum(mask.to(torch.int32), 1, dtype=torch.int32) - 1
     dest = torch.where(mask & (rank < size), rank, size)   # size = drop
-    out = torch.full((size,), fill, dtype=torch.int32, device=mask.device)
+    out = torch.full((B, size), fill, dtype=torch.int32, device=mask.device)
     return scatter_drop(out, dest, torch.arange(n, dtype=torch.int32,
                                                 device=mask.device))
 
@@ -96,39 +100,44 @@ def build_compact(spec, st) -> Compact:
     F = spec.n_vm + spec.n_pm
     S = spec.layout.S
     dev = st.f_active.device
+    B = st.f_active.shape[0]
 
     bm = st.f_active
     fidx = _ascending(bm, FB, F)
     fvalid = fidx < F
     fidx_c = torch.clamp_max(fidx, F - 1).long()
-    prov_d = torch.where(fvalid, st.f_prov[fidx_c], S)
-    cons_d = torch.where(fvalid, st.f_cons[fidx_c], S)
+    prov_d = torch.where(fvalid, st.f_prov.gather(1, fidx_c), S)
+    cons_d = torch.where(fvalid, st.f_cons.gather(1, fidx_c), S)
 
-    mark = torch.zeros((S + 1,), dtype=torch.bool, device=dev)   # S = drop
-    mark = mark.index_fill_(0, torch.cat([prov_d, cons_d]).long(), True)[:S]
+    mark = torch.zeros((B, S + 1), dtype=torch.bool, device=dev)  # S = drop
+    mark = mark.scatter_(1, torch.cat([prov_d, cons_d], dim=1).long(),
+                         True)[:, :S]
     sidx = _ascending(mark, SB, S)
-    smap = scatter_drop(torch.full((S,), SB, dtype=torch.int32, device=dev),
-                        sidx, torch.arange(SB, dtype=torch.int32, device=dev))
+    smap = scatter_drop(
+        torch.full((B, S), SB, dtype=torch.int32, device=dev), sidx,
+        torch.arange(SB, dtype=torch.int32, device=dev))
 
-    bprov = torch.where(fvalid, smap[torch.clamp_max(prov_d, S - 1).long()],
-                        SB)
-    bcons = torch.where(fvalid, smap[torch.clamp_max(cons_d, S - 1).long()],
-                        SB)
-    ok = (bm.sum() <= FB) & (mark.sum() <= SB)
+    bprov = torch.where(
+        fvalid, smap.gather(1, torch.clamp_max(prov_d, S - 1).long()), SB)
+    bcons = torch.where(
+        fvalid, smap.gather(1, torch.clamp_max(cons_d, S - 1).long()), SB)
+    ok = (bm.sum(-1) <= FB) & (mark.sum(-1) <= SB)
     return Compact(fidx=fidx, fvalid=fvalid, sidx=sidx, smap=smap,
                    bprov=bprov, bcons=bcons, ok=ok)
 
 
 def gather_flows(cp: Compact, arr: torch.Tensor, fill) -> torch.Tensor:
-    """``arr[fidx]`` with the bucket's fill lanes forced to ``fill``."""
-    F = arr.shape[0]
-    out = arr[torch.clamp_max(cp.fidx, F - 1).long()]
+    """``arr[fidx]`` of each lane, with the bucket's fill slots forced to
+    ``fill``."""
+    F = arr.shape[-1]
+    out = arr.gather(1, torch.clamp_max(cp.fidx, F - 1).long())
     return torch.where(cp.fvalid, out, fill)
 
 
 def scatter_flows(cp: Compact, n_flows: int, vals: torch.Tensor,
                   fill=0.0) -> torch.Tensor:
-    """Dense flow vector holding ``vals`` at the bucket's indices and
-    ``fill`` everywhere else (fill lanes drop)."""
-    base = torch.full((n_flows,), fill, dtype=vals.dtype, device=vals.device)
+    """Dense flow vectors [B, n_flows] holding ``vals`` at the bucket's
+    indices and ``fill`` everywhere else (fill slots drop)."""
+    base = torch.full((vals.shape[0], n_flows), fill, dtype=vals.dtype,
+                      device=vals.device)
     return scatter_drop(base, cp.fidx, vals)

@@ -5,13 +5,17 @@ One pass is exactly the stage sequence :data:`STAGES`:
 
     advance -> observe -> vm_lifecycle -> pm_power -> pm_sched -> vm_sched
 
-followed by the :func:`termination` verdict.  The reference runs passes in a
-``lax.while_loop``; here :func:`repro_torch.core.engine.simulate` calls the
-body returned by :func:`make_body` from the host, and reads
-``running & (n_events < max_events)`` once per body, i.e. once per K passes.
-With active-set compaction on, each pass also yields the bucket verdict
-``ok``; the body folds it on the device and the engine reads it in the
-same read as the loop condition.
+followed by the :func:`termination` verdict, over every lane of the batch
+at once (B = 1 for a single scenario).  The reference runs passes in a
+(vmapped) ``lax.while_loop``; here :func:`repro_torch.core.engine.simulate`
+and ``simulate_batch`` call the body returned by :func:`make_body` from the
+host, and read the lanes' loop condition ``running & (n_events <
+max_events)`` once per body, i.e. once per K passes, as one small code.
+A lane whose condition is false keeps its state, leaf by leaf, as the
+vmapped ``while_loop`` keeps a finished lane; the body runs that guard
+only when some lane has settled.  With active-set compaction on, each
+pass also yields each lane's bucket verdict ``ok``; the body folds it on
+the device and the engine reads it in the same read.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import torch
 
 from ..energy import PM_SWITCHING_OFF, PM_SWITCHING_ON
 from . import advance, lifecycle, observe, pm_sched, power, vm_sched
-from .state import TASK_PENDING, CloudState, StageCtx, live_threshold
+from .state import (TASK_PENDING, CloudState, StageCtx, live_threshold,
+                    select_lanes)
 
 STAGES = (
     advance.advance,         # §3.1/§3.2 sharing + clock-to-horizon + drain
@@ -32,10 +37,9 @@ STAGES = (
 
 # Passes per body between two host reads of the loop condition when
 # ``spec.steps_per_iter == 0``.  Every pass after the first is guarded by
-# one select per state leaf (about fifty launches; a settled pass must
-# leave the state untouched), while the data-dependent loops inside a pass
-# read the host anyway, so the default reads the condition after every
-# pass.
+# one select per state leaf (about fifty launches; a settled lane must
+# keep its state), while the data-dependent loops inside a pass read the
+# host anyway, so the default reads the condition after every pass.
 DEFAULT_STEPS_PER_ITER = 1
 
 
@@ -46,35 +50,38 @@ def steps_per_iter(spec) -> int:
 
 def termination(ctx: StageCtx, st: CloudState, snap) -> CloudState:
     """Continue while events remain, unless ``t_stop`` was reached; a pass
-    that found no event and changed no machine/task state ends the run."""
+    that found no event and changed no machine/task state ends the run (of
+    each lane)."""
     ts0, vs0, ps0, fa0 = snap
     trace = ctx.trace
-    queued = (st.task_state == TASK_PENDING) & (trace.arrival <= st.t)
+    t = st.t[:, None]
+    queued = (st.task_state == TASK_PENDING) & (trace.arrival <= t)
     live2 = st.f_active & (st.f_pr > live_threshold(st.f_total))
-    pend2 = (st.task_state == TASK_PENDING) & (trace.arrival > st.t)
+    pend2 = (st.task_state == TASK_PENDING) & (trace.arrival > t)
     trans2 = (st.pstate == PM_SWITCHING_ON) | (st.pstate == PM_SWITCHING_OFF)
-    more = live2.any() | pend2.any() | trans2.any() | queued.any()
+    more = (live2.any(-1) | pend2.any(-1) | trans2.any(-1)
+            | queued.any(-1))
     hit_stop = torch.isfinite(ctx.t_stop) & (st.t >= ctx.t_stop)
-    changed = ((st.task_state != ts0).any() | (st.vstage != vs0).any()
-               | (st.pstate != ps0).any() | (st.f_active != fa0).any())
+    changed = ((st.task_state != ts0).any(-1) | (st.vstage != vs0).any(-1)
+               | (st.pstate != ps0).any(-1) | (st.f_active != fa0).any(-1))
     return st._replace(running=(ctx.has_event | changed) & more & ~hit_stop)
 
 
-def _select(cond: torch.Tensor, new, old):
-    """Leaf-wise ``where(cond, new, old)`` over a state tree."""
-    if torch.is_tensor(new):
-        return torch.where(cond, new, old)
-    return type(new)(*(_select(cond, a, b) for a, b in zip(new, old)))
+def lanes_going(spec, st: CloudState) -> torch.Tensor:
+    """bool[B]: the lanes whose loop goes on."""
+    return st.running & (st.n_events < spec.max_events)
 
 
 def make_body(spec, params, trace, t_stop):
-    """The loop body: K pipeline passes, returning ``(state, ok)``.  The
-    first pass needs no guard (the host's loop condition admitted it);
-    each later pass is discarded leaf-wise when its entry state had
-    settled, so K passes give exactly the state and event count of K
-    single passes.  ``ok`` is the compaction verdict of the passes kept
-    (a device bool), None when compaction is off."""
-    arrival_sorted = torch.sort(trace.arrival).values
+    """The loop body ``body(st, guard) -> (st, ok)``: K pipeline passes.
+    ``guard`` is None when every lane goes on (the host's read said so),
+    else the lanes' loop condition [B]: the lanes it excludes keep their
+    state through the first pass.  Each later pass is discarded leaf-wise
+    in the lanes whose entry state had settled, so K passes give exactly
+    the state and event count of K single passes.  ``ok`` [B] is the
+    compaction verdict of the passes kept (a device bool a lane), None
+    when compaction is off."""
+    arrival_sorted = torch.sort(trace.arrival, dim=-1).values
 
     def one_pass(st: CloudState):
         ctx = StageCtx(spec=spec, params=params, trace=trace, t_stop=t_stop,
@@ -85,17 +92,25 @@ def make_body(spec, params, trace, t_stop):
         ok = None if ctx.compact is None else ctx.compact.ok
         return termination(ctx, st, snap), ok
 
+    def guarded(cont, st, ok):
+        """One pass kept in the lanes of ``cont``; a discarded pass's
+        bucket does not count."""
+        new, ok_k = one_pass(st)
+        st = select_lanes(cont, new, st)
+        if ok_k is not None:
+            ok_k = ok_k | ~cont
+            ok = ok_k if ok is None else ok & ok_k
+        return st, ok
+
     K = steps_per_iter(spec)
 
-    def body(st: CloudState):
-        st, ok = one_pass(st)
+    def body(st: CloudState, guard=None):
+        if guard is None:
+            st, ok = one_pass(st)
+        else:
+            st, ok = guarded(guard, st, None)
         for _ in range(K - 1):
-            cont = st.running & (st.n_events < spec.max_events)
-            new, ok_k = one_pass(st)
-            st = _select(cont, new, st)
-            if ok_k is not None:
-                # a discarded pass's bucket does not count
-                ok = ok & (ok_k | ~cont)
+            st, ok = guarded(lanes_going(spec, st), st, ok)
         return st, ok
 
     return body
@@ -104,8 +119,9 @@ def make_body(spec, params, trace, t_stop):
 def management_pass(spec, params, trace, st: CloudState) -> CloudState:
     """The pre-loop scheduler pass: arrivals at exactly the current clock
     are served before the first horizon jump."""
+    t = st.t
     ctx = StageCtx(spec=spec, params=params, trace=trace,
-                   t_stop=torch.tensor(float("inf"), device=st.t.device))
+                   t_stop=torch.full(t.shape, float("inf"), device=t.device))
     _, st = pm_sched.pm_sched(ctx, st)
     _, st = vm_sched.vm_sched(ctx, st)
     return st

@@ -29,22 +29,25 @@ def vm_lifecycle(ctx: StageCtx, st: CloudState):
 
     # Work on the VM-flow prefix [:V]; the hidden-consumer suffix belongs
     # to the pm_power stage.
-    vdone = ctx.done[:V]
-    kind = st.f_kind[:V]
+    vdone = ctx.done[:, :V]
+    kind = st.f_kind[:, :V]
     host = st.vm_host
     xfer_done = vdone & (kind == KIND_IMAGE_XFER)
     boot_done = vdone & (kind == KIND_BOOT)
     task_done = vdone & (kind == KIND_TASK)
     mig_done = vdone & (kind == KIND_MIGRATE)
 
-    v_pr, v_total = st.f_pr[:V], st.f_total[:V]
-    v_pl, v_kind = st.f_pl[:V], st.f_kind[:V]
-    v_prov, v_cons = st.f_prov[:V], st.f_cons[:V]
-    v_release, v_active = st.f_release[:V], st.f_active[:V]
+    v_pr, v_total = st.f_pr[:, :V], st.f_total[:, :V]
+    v_pl, v_kind = st.f_pl[:, :V], st.f_kind[:, :V]
+    v_prov, v_cons = st.f_prov[:, :V], st.f_cons[:, :V]
+    v_release, v_active = st.f_release[:, :V], st.f_active[:, :V]
+    t_new = t_new[:, None]
+    boot_work = params.boot_work[:, None]
+    perf_core = params.perf_core[:, None]
 
     # image transfer -> startup: flow becomes boot work on the host CPU
-    v_pr = torch.where(xfer_done, params.boot_work, v_pr)
-    v_total = torch.where(xfer_done, params.boot_work, v_total)
+    v_pr = torch.where(xfer_done, boot_work, v_pr)
+    v_total = torch.where(xfer_done, boot_work, v_total)
     v_prov = torch.where(xfer_done | boot_done, lay.cpu0 + host, v_prov)
     v_cons = torch.where(xfer_done | boot_done, lay.vm0 + vm_slot, v_cons)
     v_pl = torch.where(xfer_done, BIG, v_pl)
@@ -55,11 +58,11 @@ def vm_lifecycle(ctx: StageCtx, st: CloudState):
 
     # boot -> running: flow becomes the user task
     tid = torch.clamp_min(st.vm_task, 0).long()
-    twork = trace.work[tid]
-    tcores = trace.cores[tid]
+    twork = trace.work.gather(1, tid)
+    tcores = trace.cores.gather(1, tid)
     v_pr = torch.where(boot_done, twork, v_pr)
     v_total = torch.where(boot_done, twork, v_total)
-    v_pl = torch.where(boot_done, tcores * params.perf_core, v_pl)
+    v_pl = torch.where(boot_done, tcores * perf_core, v_pl)
     v_kind = torch.where(boot_done, KIND_TASK, v_kind)
     vstage = torch.where(boot_done, mc.VM_RUNNING, vstage)
 
@@ -68,7 +71,7 @@ def vm_lifecycle(ctx: StageCtx, st: CloudState):
     v_pr = torch.where(mig_done, st.vm_saved_pr, v_pr)
     v_total = torch.where(mig_done, torch.clamp_min(st.vm_saved_pr, 1e-9),
                           v_total)
-    v_pl = torch.where(mig_done, tcores * params.perf_core, v_pl)
+    v_pl = torch.where(mig_done, tcores * perf_core, v_pl)
     v_kind = torch.where(mig_done, KIND_TASK, v_kind)
     v_prov = torch.where(mig_done, lay.cpu0 + new_host, v_prov)
     v_cons = torch.where(mig_done, lay.vm0 + vm_slot, v_cons)
@@ -81,18 +84,18 @@ def vm_lifecycle(ctx: StageCtx, st: CloudState):
         torch.stack([torch.where(task_done, st.vm_cores, 0.0),
                      torch.where(expired, st.vm_cores, 0.0)], dim=-1),
         host, P, where=task_done | expired)
-    free_cores = st.free_cores + freed[:, 0]
+    free_cores = st.free_cores + freed[..., 0]
     tslot = torch.where(task_done, st.vm_task, T)     # T = scatter drop
     task_state = scatter_drop(st.task_state, tslot, TASK_DONE)
-    t_done = scatter_drop(st.t_done, tslot, t_new.expand(V))
+    t_done = scatter_drop(st.t_done, tslot, t_new.expand(tslot.shape))
     vstage = torch.where(task_done, mc.VM_FREE, vstage)
     v_active = torch.where(task_done, False, v_active)
 
     def prefix(full, head):
-        return torch.cat([head, full[V:]])
+        return torch.cat([head, full[:, V:]], dim=1)
 
     # allocation expiry (§3.4.2 self-defence)
-    free_cores = free_cores + freed[:, 1]
+    free_cores = free_cores + freed[..., 1]
     vstage = torch.where(expired, mc.VM_FREE, vstage)
 
     return ctx, st._replace(

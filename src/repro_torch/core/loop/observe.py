@@ -30,9 +30,11 @@ def _eq6_views(ctx: StageCtx, st: CloudState, cpu_del: torch.Tensor):
     vm_spreader = lay.vm0 + torch.arange(V, dtype=torch.int32,
                                          device=st.vm_host.device)
     in_grp, vms_on_host = coupled_vm_counts(
-        labels, lay.cpu0 + st.vm_host, vm_spreader, st.vm_host, P)
-    vm_rate_frac = (torch.where(in_grp, ctx.r[:V], 0.0)
-                    / torch.clamp_min(cpu_del[st.vm_host.long()], 1e-30))
+        labels, lay.cpu0 + st.vm_host, vm_spreader.expand(st.vm_host.shape),
+        st.vm_host, P)
+    vm_rate_frac = (torch.where(in_grp, ctx.r[:, :V], 0.0)
+                    / torch.clamp_min(cpu_del.gather(1, st.vm_host.long()),
+                                      1e-30))
     vm_host = torch.where(in_grp, st.vm_host, -1)
     return vm_rate_frac, vm_host, vms_on_host
 
@@ -44,30 +46,31 @@ def build_view(ctx: StageCtx, st: CloudState) -> SimView:
     P, V = spec.n_pm, spec.n_vm
     table = params.power
     dev = st.pstate.device
+    B = st.pstate.shape[0]
 
-    cpu_del = ctx.delivered[lay.cpu0:lay.cpu0 + P]
-    cpu_cap = max(params.pm_cores * params.perf_core, 1e-30)
-    util = cpu_del / cpu_cap
+    cpu_del = ctx.delivered[:, lay.cpu0:lay.cpu0 + P]
+    util = cpu_del / params.util_cap[:, None]
     power = instantaneous_power(table, st.pstate, util)
     ps = st.pstate.long()
-    p_idle = table.p_min[ps]
-    p_span = torch.where(table.mode[ps] == MODEL_LINEAR,
-                         table.p_max[ps] - p_idle, 0.0)
+    p_idle = table.p_min.gather(1, ps)
+    p_span = torch.where(table.mode.gather(1, ps) == MODEL_LINEAR,
+                         table.p_max.gather(1, ps) - p_idle, 0.0)
 
     if spec.meters.vm_direct:
         vm_rate_frac, vm_host, vms_on_host = _eq6_views(ctx, st, cpu_del)
     else:
-        vms_on_host = torch.zeros((P,), dtype=torch.int32, device=dev)
-        vm_rate_frac = torch.zeros((V,), dtype=torch.float32, device=dev)
-        vm_host = torch.full((V,), -1, dtype=torch.int32, device=dev)
+        vms_on_host = torch.zeros((B, P), dtype=torch.int32, device=dev)
+        vm_rate_frac = torch.zeros((B, V), dtype=torch.float32, device=dev)
+        vm_host = torch.full((B, V), -1, dtype=torch.int32, device=dev)
 
     hosted = st.vstage != mc.VM_FREE
-    queued = (st.task_state == TASK_PENDING) & (trace.arrival <= ctx.t0)
+    queued = ((st.task_state == TASK_PENDING)
+              & (trace.arrival <= ctx.t0[:, None]))
     return SimView(
         pm_power=power, pm_idle=p_idle, pm_span=p_span, pm_util=util,
         vm_rate_frac=vm_rate_frac, vm_host=vm_host, vms_on_host=vms_on_host,
-        n_hosted=hosted.sum().to(torch.float32),
-        n_queued=queued.sum().to(torch.float32),
+        n_hosted=hosted.sum(-1).to(torch.float32),
+        n_queued=queued.sum(-1).to(torch.float32),
         tick=ctx.tick, period=ctx.period)
 
 

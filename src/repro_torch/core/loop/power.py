@@ -23,7 +23,7 @@ def pm_power(ctx: StageCtx, st: CloudState):
     spec = ctx.spec
     V = spec.n_vm
 
-    hdone = ctx.done[V:]
+    hdone = ctx.done[:, V:]
     pstate = st.pstate
     pstate_end = st.pstate_end
     if spec.complex_power:
@@ -31,11 +31,13 @@ def pm_power(ctx: StageCtx, st: CloudState):
                              PM_RUNNING, pstate)
         pstate = torch.where(hdone & (pstate == PM_SWITCHING_OFF),
                              PM_OFF, pstate)
-    f_active = torch.cat([st.f_active[:V],
-                          torch.where(hdone, False, st.f_active[V:])])
+    f_active = torch.cat([st.f_active[:, :V],
+                          torch.where(hdone, False, st.f_active[:, V:])],
+                         dim=1)
 
-    ponend = (pstate == PM_SWITCHING_ON) & (pstate_end <= ctx.t_new)
-    poffend = (pstate == PM_SWITCHING_OFF) & (pstate_end <= ctx.t_new)
+    t_new = ctx.t_new[:, None]
+    ponend = (pstate == PM_SWITCHING_ON) & (pstate_end <= t_new)
+    poffend = (pstate == PM_SWITCHING_OFF) & (pstate_end <= t_new)
     pstate = torch.where(ponend, PM_RUNNING, pstate)
     pstate = torch.where(poffend, PM_OFF, pstate)
     pstate_end = torch.where(ponend | poffend, math.inf, pstate_end)

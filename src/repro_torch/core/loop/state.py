@@ -5,6 +5,17 @@
 Every stage is ``stage(ctx, st) -> (ctx, st)``.  Stages never write into a
 state tensor in place: each returns new tensors for the fields it changes,
 so a caller may keep the previous state as a snapshot.
+
+**The lane axis.**  Inside the loop every state and context tensor has a
+leading lane axis, one lane a scenario of a batch: the clock and the other
+scalars are [B], an entity vector is [B, N].  A single scenario is the
+batch of one lane (B = 1), squeezed at the engine's boundary
+(:func:`add_lane` / :func:`drop_lane`), so one copy of the stages serves
+both.  The stages compute each lane as that lane alone would be computed:
+elementwise ops, gathers and the reductions along the last axis are
+lane-local, segment sums offset each lane's ids apart, and the float sums
+whose rounding could depend on the lane count reduce each lane by itself
+(:func:`repro_torch.core.arrays.lane_sum`).
 """
 from __future__ import annotations
 
@@ -34,6 +45,9 @@ TASK_REJECTED = 3
 
 
 class CloudState(NamedTuple):
+    """The loop's state; shapes as in one scenario, each with a leading
+    [B] inside the loop."""
+
     t: torch.Tensor          # f32 simulated clock
     t_c: torch.Tensor        # f32 Kahan compensation for the clock
     n_events: torch.Tensor   # i32
@@ -88,10 +102,10 @@ class StageCtx(NamedTuple):
     """Read-mostly context threaded through one pipeline pass."""
 
     spec: Any
-    params: Any
-    trace: Any
-    t_stop: torch.Tensor               # f32 scalar
-    arrival_sorted: torch.Tensor | None = None
+    params: Any                        # LaneParams: every leaf [B, ...]
+    trace: Any                         # Trace of [B, T] tensors
+    t_stop: torch.Tensor               # f32[B]
+    arrival_sorted: torch.Tensor | None = None   # f32[B, T]
 
     # -- filled by the `advance` stage -----------------------------------
     r: torch.Tensor | None = None
@@ -109,3 +123,33 @@ class StageCtx(NamedTuple):
 
     # -- filled by the `observe` stage -----------------------------------
     view: Any = None
+
+
+def _tree_map(fn, tree):
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, x) for x in tree))
+    return tree
+
+
+def add_lane(tree):
+    """A single scenario's state (or any NamedTuple tree of tensors) as the
+    batch of one lane: every tensor gains a leading axis of 1 (a view)."""
+    return _tree_map(lambda t: t.unsqueeze(0), tree)
+
+
+def drop_lane(tree, lane: int = 0):
+    """Lane ``lane`` of a batched tree, as a single scenario's tree (a
+    view)."""
+    return _tree_map(lambda t: t[lane], tree)
+
+
+def select_lanes(cond: torch.Tensor, new, old):
+    """Leaf-wise ``where(cond, new, old)`` over two trees of one shape,
+    ``cond`` [B] picking lane by lane (broadcast over each leaf's other
+    axes)."""
+    if torch.is_tensor(new):
+        c = cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim()))
+        return torch.where(c, new, old)
+    return type(new)(*(select_lanes(cond, a, b) for a, b in zip(new, old)))

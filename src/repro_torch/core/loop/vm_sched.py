@@ -1,12 +1,15 @@
 """Stage 6 — ``vm_sched``: the VM scheduler policy hook (port of
 ``repro.core.loop.vm_sched``).
 
-The stage calls the policy that ``params.vm_sched`` names in the registry.
-What stays here is the machinery the builtin dispatchers share:
-:func:`serve_queue`, which serves the request queue until blocked or empty.
-The reference runs it as a ``lax.while_loop``; the port loops on the host
-and reads two flags per dispatching round ("any request queued", "did the
-round make progress").
+The stage calls the policy that ``params.vm_sched`` names in the registry
+(each lane its own, :func:`repro_torch.sched.registry.run_stage`).  What
+stays here is the machinery the builtin dispatchers share:
+:func:`serve_queue`, which serves the request queue until blocked or
+empty.  The reference runs it as a ``lax.while_loop``; the port loops on
+the host and reads two flags per dispatching round, over all lanes: "any
+lane has a request queued" and "any lane made progress".  A lane whose
+queue is empty or blocked makes every write of a round select its old
+value, so the rounds other lanes still need leave it bit for bit.
 
 State delta: per dispatched request, the allocated VM slot, its
 image-transfer flow, the host's ``free_cores`` and the task binding; per
@@ -25,18 +28,19 @@ from .state import BIG, TASK_ACTIVE, TASK_PENDING, TASK_REJECTED, CloudState, St
 
 
 def _set_at(arr: torch.Tensor, i: torch.Tensor, do: torch.Tensor, val):
-    """``arr.at[i].set(where(do, val, arr[i]))`` without a host read."""
-    out = arr.clone()
+    """``arr.at[i].set(where(do, val, arr[i]))`` in each lane (``i``,
+    ``do`` and a tensor ``val`` [B]) without a host read."""
+    at = i[:, None]
     new = torch.where(do, torch.as_tensor(val, dtype=arr.dtype,
-                                          device=arr.device), arr[i])
-    out.index_put_((i.reshape(1),), new.reshape(1))
-    return out
+                                          device=arr.device),
+                      arr.gather(1, at)[:, 0])
+    return arr.scatter(1, at, new[:, None])
 
 
 def serve_queue(spec, params, trace, st: CloudState, *,
                 smallest_first: bool = False,
                 reject_unfit: bool = False) -> CloudState:
-    """Serve the request queue until blocked or empty.
+    """Serve each lane's request queue until blocked or empty.
 
     ``smallest_first`` orders the queue by requested cores instead of
     arrival time; ``reject_unfit`` rejects a head request no running host
@@ -46,25 +50,25 @@ def serve_queue(spec, params, trace, st: CloudState, *,
     """
     lay = spec.layout
     qkey = trace.cores if smallest_first else trace.arrival
-    t0 = st.t
-    release = t0 + params.latency_s
+    t0 = st.t[:, None]
+    release = st.t + params.latency_s
     while True:
         queued = (st.task_state == TASK_PENDING) & (trace.arrival <= t0)
-        any_q = queued.any()
-        if not bool(any_q):
+        any_q = queued.any(-1)
+        if not bool(any_q.any()):
             # an empty queue makes the round an exact no-op that ends the loop
             break
         key = torch.where(queued, qkey, math.inf)
-        head = torch.argmin(key)
-        h_cores = trace.cores[head]
+        head = torch.argmin(key, dim=-1)
+        h_cores = trace.cores.gather(1, head[:, None])[:, 0]
 
         oversize = h_cores > params.pm_cores
-        fit = mc.pm_accepting(st.pstate) & (st.free_cores >= h_cores)
-        any_fit = fit.any()
-        pm = torch.argmax(fit.to(torch.uint8))
+        fit = mc.pm_accepting(st.pstate) & (st.free_cores >= h_cores[:, None])
+        any_fit = fit.any(-1)
+        pm = torch.argmax(fit.to(torch.uint8), dim=-1)
         vfree = st.vstage == mc.VM_FREE
-        any_v = vfree.any()
-        v = torch.argmax(vfree.to(torch.uint8))
+        any_v = vfree.any(-1)
+        v = torch.argmax(vfree.to(torch.uint8), dim=-1)
 
         blocked = oversize | ~any_fit if reject_unfit else oversize
         do_reject = any_q & blocked
@@ -85,9 +89,9 @@ def serve_queue(spec, params, trace, st: CloudState, *,
             vm_host=wv(st.vm_host, pm32),
             vm_cores=wv(st.vm_cores, h_cores),
             vm_expiry=wv(st.vm_expiry, math.inf),
-            free_cores=st.free_cores.index_add(
-                0, pm.reshape(1),
-                torch.where(do_dispatch, -h_cores, 0.0).reshape(1)),
+            free_cores=st.free_cores.scatter_add(
+                1, pm[:, None],
+                torch.where(do_dispatch, -h_cores, 0.0)[:, None]),
             f_pr=wv(st.f_pr, params.image_mb),
             f_total=wv(st.f_total, params.image_mb),
             f_pl=wv(st.f_pl, BIG),
@@ -98,11 +102,10 @@ def serve_queue(spec, params, trace, st: CloudState, *,
             f_kind=wv(st.f_kind, KIND_IMAGE_XFER),
             overflow=st.overflow | overflow,
         )
-        if not bool(do_dispatch | do_reject):
+        if not bool((do_dispatch | do_reject).any()):
             break
     return st
 
 
 def vm_sched(ctx: StageCtx, st: CloudState):
-    policy = registry.get("vm", ctx.params.vm_sched)
-    return ctx, policy.fn(ctx.spec, ctx.params, ctx, st)
+    return ctx, registry.run_stage("vm", ctx, st)

@@ -1,5 +1,6 @@
-// Event-horizon reduction for Hopper (sm_90a): scalar min(cand[mask]), or
-// 3e38 when no lane is masked in.
+// Event-horizon reduction for Hopper (sm_90a): min(cand[mask]), or 3e38
+// when no lane is masked in, of one vector or of each of B rows of one
+// length (one engine lane a row) in one launch.
 //
 // Replaces the Pallas TPU kernel repro/kernels/horizon.py masked_min
 // (_kernel and _kernel_small).  The TPU kernel streams (8, 128) blocks
@@ -16,7 +17,11 @@
 // to SINGLE_BLOCK_LANES lanes take one block; a longer vector takes a grid
 // of one loop a thread in the same launch, whose last block to finish (an
 // atomic ticket after a __threadfence) reduces the blocks' partial minima.
-// The result stays on the device.
+// The result stays on the device.  Rows are the grid's y extent: row b's
+// blocks read cand and mask from b * n on, write out[b], and count on a
+// ticket of their own in the workspace; each row computes what the
+// one-vector launch computes on it (the alignment checks are the row's
+// own), so B = 1 is that launch.
 //
 // What bounds it on an H100: the engine's horizon vector is ~10k lanes
 // (f32 candidates + bool mask, ~50 KB), which 3.35 TB/s moves in a few
@@ -43,7 +48,8 @@
 #define SINGLE_BLOCK_LANES 65536     // up to here one block (4 loops)
 #define MAX_BLOCKS 264
 
-// the grid path's workspace: a ticket, then one partial minimum a block
+// the grid path's workspace of a row: a ticket, then one partial minimum a
+// block
 #define MIN_WORKSPACE_BYTES (4 * (1 + MAX_BLOCKS))
 
 // four lanes of cand under four mask bytes (bool: 0 or 1)
@@ -60,6 +66,11 @@ masked_min_kernel(const float* __restrict__ cand,
                   unsigned* ws, int n) {
     __shared__ float red[32];
     __shared__ bool last;
+    const size_t row = blockIdx.y;
+    cand += row * n;
+    mask += row * n;
+    out += row;
+    if (ws) ws += row * (MIN_WORKSPACE_BYTES / 4);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int g = blockIdx.x * blockDim.x + threadIdx.x;
     const int gs = gridDim.x * blockDim.x;
@@ -126,20 +137,24 @@ masked_min_kernel(const float* __restrict__ cand,
     }
 }
 
-// ws: MIN_WORKSPACE_BYTES of device memory when n > SINGLE_BLOCK_LANES (the
-// grid path), else unused and may be NULL.
+// rows rows of n lanes each; out[rows].  ws: rows * MIN_WORKSPACE_BYTES of
+// device memory when n > SINGLE_BLOCK_LANES (the grid path), else unused
+// and may be NULL.
 extern "C" int masked_min_launch(const float* cand, const uint8_t* mask,
-                                 float* out, void* ws, int n, void* stream) {
+                                 float* out, void* ws, int n, int rows,
+                                 void* stream) {
     long long blocks = 1;
     if (n > SINGLE_BLOCK_LANES) {
         if (ws == nullptr) return (int)cudaErrorInvalidValue;
         blocks = ((long long)n + BLOCK_LANES - 1) / BLOCK_LANES;
         if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-        const cudaError_t err = cudaMemsetAsync(ws, 0, sizeof(unsigned),
-                                                (cudaStream_t)stream);
+        // every row's ticket to 0 (the partials need no clearing)
+        const cudaError_t err = cudaMemsetAsync(
+            ws, 0, (size_t)rows * MIN_WORKSPACE_BYTES, (cudaStream_t)stream);
         if (err != cudaSuccess) return (int)err;
     }
-    masked_min_kernel<<<(int)blocks, MIN_THREADS, 0, (cudaStream_t)stream>>>(
+    const dim3 grid((unsigned)blocks, (unsigned)rows);
+    masked_min_kernel<<<grid, MIN_THREADS, 0, (cudaStream_t)stream>>>(
         cand, mask, out, static_cast<unsigned*>(ws), n);
     return (int)cudaGetLastError();
 }
@@ -149,8 +164,9 @@ extern "C" int masked_min_launch(const float* cand, const uint8_t* mask,
 __global__ void empty_kernel() {}
 
 extern "C" int empty_launch(const float* cand, const uint8_t* mask,
-                            float* out, void* ws, int n, void* stream) {
-    (void)cand; (void)mask; (void)out; (void)ws; (void)n;
+                            float* out, void* ws, int n, int rows,
+                            void* stream) {
+    (void)cand; (void)mask; (void)out; (void)ws; (void)n; (void)rows;
     empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

@@ -58,6 +58,16 @@
 // adds); fill_plan by its one block's count, scan and the warps' stable
 // fill.  None touches the tensor cores.
 //
+// The lane axis: each launch solves B independent problems of one shape,
+// lane b's arrays at b times the row length (b * C flows, b * S
+// spreaders, b * (S + 1) offsets).  The solve and the plan run one block a
+// lane (blockIdx.x), the round a row of blocks a lane (blockIdx.y), and the
+// solve's workspace holds one slice a lane.  A block reads and writes its
+// own lane only, and computes exactly what the single problem's launch
+// computes on that row: B = 1 is that launch.  A batch of B lanes costs
+// one launch where B problems cost B, which is what a host-bound engine
+// pass needs.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (no --use_fast_math: the freeze test and the headroom division must round
 // as the plain version does).
@@ -427,20 +437,35 @@ __device__ __forceinline__ void solve_live(
     for (int q = tid; q < L; q += nr) r[a.idx[q]] = a.rl[q];
 }
 
-// One block a launch: said to ptxas, which otherwise caps the registers at
+// Bytes of one lane's slice of the solve's workspace: the arrays of all C
+// flows, rounded up so that every lane's slice starts 256-byte aligned.
+__host__ __device__ constexpr size_t solve_lane_bytes(long long C) {
+    return (solve_arrays_bytes(C) + 255) & ~(size_t)255;
+}
+
+// One block a lane: said to ptxas, which otherwise caps the registers at
 // 32 with the three placements inlined, and spills.
 __global__ void __launch_bounds__(SOLVE_THREADS, 1)
 maxmin_solve_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
                     const float* __restrict__ p_l,
                     const uint8_t* __restrict__ live,
                     const float* __restrict__ perf,
-                    float* __restrict__ r,   // [C] out
+                    float* __restrict__ r,   // [B, C] out
                     char* scratch,           // the arrays when L > SOLVE_SMEM_FLOWS
-                    int C, int max_iters, float thr_scale) {
+                    int C, int S, int max_iters, float thr_scale) {
     extern __shared__ __align__(16) char solve_smem[];
     __shared__ int red_i[32];
     __shared__ float red_f[32];
     const int tid = threadIdx.x, nt = blockDim.x;
+    // this block's lane
+    const size_t lane = blockIdx.x;
+    prov += lane * C;
+    cons += lane * C;
+    p_l += lane * C;
+    live += lane * C;
+    perf += lane * S;
+    r += lane * C;
+    if (scratch) scratch += lane * solve_lane_bytes(C);
 
     // ---- rank the live flows: a contiguous chunk of flows per thread ------
     const int per = (C + nt - 1) / nt;
@@ -464,6 +489,8 @@ maxmin_solve_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
 }
 
 // ---- the round-wise path --------------------------------------------------
+// (lane offsets as in the solve: the plan's block and the round's row of
+// blocks each read and write one lane)
 
 #define PLAN_THREADS 1024
 #define PLAN_CHUNK 4096     // flows staged in shared memory per fill step
@@ -493,6 +520,16 @@ fill_plan_kernel(const int* __restrict__ prov, const int* __restrict__ cons,
                  int* scratch, int C, int S) {
     extern __shared__ int plan_smem[];
     __shared__ int red_i[32];
+    const size_t lane = blockIdx.x;
+    prov += lane * C;
+    cons += lane * C;
+    live += lane * C;
+    if (unfrozen) unfrozen += lane * C;
+    offp += lane * (S + 1);
+    offc += lane * (S + 1);
+    csrp += lane * C;
+    csrc += lane * C;
+    if (scratch) scratch += lane * 2 * (S + 1);
     int* stage_p = plan_smem;                  // [PLAN_CHUNK]
     int* stage_c = stage_p + PLAN_CHUNK;       // [PLAN_CHUNK]
     int* cntp = scratch ? scratch : stage_c + PLAN_CHUNK;
@@ -553,18 +590,31 @@ fill_round_kernel(const int* __restrict__ offp, const int* __restrict__ csrp,
                   const uint8_t* __restrict__ live,
                   const uint8_t* __restrict__ unfrozen,
                   const float* __restrict__ perf,
-                  float* __restrict__ dp, float* __restrict__ dc, int S) {
+                  float* __restrict__ dp, float* __restrict__ dc, int C,
+                  int S) {
     const int s = blockIdx.x * blockDim.x + threadIdx.x;
     if (s >= S) return;
+    const size_t lane = blockIdx.y;
+    offp += lane * (S + 1);
+    offc += lane * (S + 1);
+    csrp += lane * C;
+    csrc += lane * C;
+    r += lane * C;
+    live += lane * C;
+    unfrozen += lane * C;
+    perf += lane * S;
+    dp += lane * S;
+    dc += lane * S;
     const float pf = perf[s];
     dp[s] = segment_headroom(offp, csrp, r, live, unfrozen, pf, s);
     dc[s] = segment_headroom(offc, csrc, r, live, unfrozen, pf, s);
 }
 
-// Bytes of global scratch a solve of C flows needs: the arrays of all C
-// flows when more than SOLVE_SMEM_FLOWS of them could be live, else none.
+// Bytes of global scratch a lane of a solve of C flows needs: the arrays of
+// all C flows when more than SOLVE_SMEM_FLOWS of them could be live, else
+// none.  A launch of B lanes takes B times this.
 extern "C" size_t maxmin_solve_scratch_bytes(int C) {
-    return C > SOLVE_SMEM_FLOWS ? solve_arrays_bytes(C) : 0;
+    return C > SOLVE_SMEM_FLOWS ? solve_lane_bytes(C) : 0;
 }
 
 #define MAX_DEVICES 64
@@ -572,8 +622,8 @@ extern "C" size_t maxmin_solve_scratch_bytes(int C) {
 extern "C" int maxmin_solve_launch(const int* prov, const int* cons,
                                    const float* p_l, const uint8_t* live,
                                    const float* perf, float* r, char* scratch,
-                                   int C, int max_iters, float thr_scale,
-                                   void* stream) {
+                                   int C, int S, int B, int max_iters,
+                                   float thr_scale, void* stream) {
     // the shared-memory opt-in is a property of the function on a device:
     // set it once per device, not at every launch
     static bool opted_in[MAX_DEVICES] = {};
@@ -588,15 +638,16 @@ extern "C" int maxmin_solve_launch(const int* prov, const int* cons,
         if (err != cudaSuccess) return (int)err;
         if (dev < MAX_DEVICES) opted_in[dev] = true;
     }
-    maxmin_solve_kernel<<<1, SOLVE_THREADS, smem, (cudaStream_t)stream>>>(
-        prov, cons, p_l, live, perf, r, scratch, C, max_iters, thr_scale);
+    maxmin_solve_kernel<<<B, SOLVE_THREADS, smem, (cudaStream_t)stream>>>(
+        prov, cons, p_l, live, perf, r, scratch, C, S, max_iters, thr_scale);
     return (int)cudaGetLastError();
 }
 
 extern "C" int fill_plan_launch(const int* prov, const int* cons,
                                 const uint8_t* live, const uint8_t* unfrozen,
                                 int* offp, int* csrp, int* offc, int* csrc,
-                                int* scratch, int C, int S, void* stream) {
+                                int* scratch, int C, int S, int B,
+                                void* stream) {
     size_t smem = fill_plan_smem_bytes(S, scratch == nullptr);
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -604,7 +655,7 @@ extern "C" int fill_plan_launch(const int* prov, const int* cons,
             (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    fill_plan_kernel<<<1, PLAN_THREADS, smem, (cudaStream_t)stream>>>(
+    fill_plan_kernel<<<B, PLAN_THREADS, smem, (cudaStream_t)stream>>>(
         prov, cons, live, unfrozen, offp, csrp, offc, csrc, scratch, C, S);
     return (int)cudaGetLastError();
 }
@@ -613,9 +664,10 @@ extern "C" int fill_round_launch(const int* offp, const int* csrp,
                                  const int* offc, const int* csrc,
                                  const float* r, const uint8_t* live,
                                  const uint8_t* unfrozen, const float* perf,
-                                 float* dp, float* dc, int S, void* stream) {
-    int blocks = (S + ROUND_THREADS - 1) / ROUND_THREADS;
-    fill_round_kernel<<<blocks, ROUND_THREADS, 0, (cudaStream_t)stream>>>(
-        offp, csrp, offc, csrc, r, live, unfrozen, perf, dp, dc, S);
+                                 float* dp, float* dc, int C, int S, int B,
+                                 void* stream) {
+    dim3 grid((S + ROUND_THREADS - 1) / ROUND_THREADS, B);
+    fill_round_kernel<<<grid, ROUND_THREADS, 0, (cudaStream_t)stream>>>(
+        offp, csrp, offc, csrc, r, live, unfrozen, perf, dp, dc, C, S);
     return (int)cudaGetLastError();
 }

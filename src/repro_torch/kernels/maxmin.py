@@ -27,6 +27,14 @@ stable CSR of the flows by provider and by consumer, then one
 The public :func:`fill_stats` is the two in one call.  Dropping the flows
 outside the plan is exact (``csrc/maxmin.cu`` says why), so every path
 equals ``ref.fill_stats_ref`` bit for bit.
+
+**The lane axis.**  Every wrapper and plain version takes either one
+problem (flows [C], spreaders [S]) or a batch of B independent problems
+of one shape, each row a lane ([B, C], [B, S]).  One launch serves all
+lanes, each lane in blocks of its own (one block a lane for the solve
+and the plan, a row of blocks for the round), and a lane's result is
+the result of its row alone, bit for bit: B = 1 is the single problem's
+launch.  A wrapper counts one launch per call, whatever B is.
 """
 from __future__ import annotations
 
@@ -64,15 +72,17 @@ class FillPlan(NamedTuple):
     of the provider side lists ``csr_p[off_p[s]:off_p[s+1]]`` in ascending
     flow index (likewise the consumer side).  int32 tensors, ``off_*`` of
     ``S + 1`` entries, ``csr_*`` of ``C`` (the tail past ``off_*[S]`` is
-    unused)."""
+    unused); with a lane axis each row is one lane's plan, its flow
+    indices within the lane."""
     off_p: torch.Tensor
     csr_p: torch.Tensor
     off_c: torch.Tensor
     csr_c: torch.Tensor
 
     def longest_segment(self) -> int:
-        return int(max(torch.diff(self.off_p).max(),
-                       torch.diff(self.off_c).max()))
+        """The longest segment over both sides and every lane."""
+        return int(max(torch.diff(self.off_p, dim=-1).max(),
+                       torch.diff(self.off_c, dim=-1).max()))
 
 
 def solve_fits(n_flows: int, n_spreaders: int) -> bool:
@@ -85,8 +95,27 @@ def solve_fits(n_flows: int, n_spreaders: int) -> bool:
 # plain PyTorch versions (the CPU path, and the card's yardstick)
 # ---------------------------------------------------------------------------
 
+def _lanes(*xs):
+    """Each tensor with a leading lane axis (a 1-D one as one lane)."""
+    return tuple(x if x is None or x.dim() > 1 else x[None] for x in xs)
+
+
+def _per_lane(fn, *args):
+    """``fn`` of one problem applied to each lane of [B, ...] arguments
+    (``None`` passed through), its outputs stacked along a new lane axis:
+    each lane is the 1-D plain version on its row, bit for bit."""
+    rows = [fn(*(a if a is None or not torch.is_tensor(a) else a[b]
+                 for a in args)) for b in range(args[0].shape[0])]
+    out = [torch.stack(xs) for xs in zip(*rows)]
+    return FillPlan(*out) if isinstance(rows[0], FillPlan) else tuple(out)
+
+
 def fill_stats_plain(provider, consumer, r, live, unfrozen, perf):
-    """Per-spreader headroom of one round (``ref.fill_stats_ref``)."""
+    """Per-spreader headroom of one round (``ref.fill_stats_ref``); of each
+    lane for [B, ...] inputs."""
+    if perf.dim() > 1:
+        return _per_lane(fill_stats_plain, provider, consumer, r, live,
+                         unfrozen, perf)
     S = perf.shape[0]
     rl = torch.where(live, r, 0.0)
     uf = unfrozen.to(torch.float32)
@@ -107,7 +136,11 @@ def fill_stats_plain(provider, consumer, r, live, unfrozen, perf):
 def fill_plan_plain(provider, consumer, live, unfrozen, n_spreaders: int
                     ) -> FillPlan:
     """The plan of the flows with ``live | unfrozen`` (``live`` alone when
-    ``unfrozen`` is None): a stable sort of their indices by segment."""
+    ``unfrozen`` is None): a stable sort of their indices by segment; of
+    each lane for [B, C] inputs."""
+    if provider.dim() > 1:
+        return _per_lane(fill_plan_plain, provider, consumer, live, unfrozen,
+                         n_spreaders)
     keep = live if unfrozen is None else live | unfrozen
     idx = torch.nonzero(keep).flatten()
     C = provider.shape[0]
@@ -128,7 +161,12 @@ def fill_plan_plain(provider, consumer, live, unfrozen, n_spreaders: int
 def fill_round_plain(plan: FillPlan, r, live, unfrozen, perf):
     """One round's ``(dp, dc)`` summed over the plan's segments in plan
     order (``index_add_`` on the CPU adds serially, so each segment's terms
-    go in ascending flow index, as in :func:`fill_stats_plain`)."""
+    go in ascending flow index, as in :func:`fill_stats_plain`); of each
+    lane for [B, ...] inputs."""
+    if perf.dim() > 1:
+        return _per_lane(lambda *a: fill_round_plain(FillPlan(*a[:4]),
+                                                     *a[4:]),
+                         *plan, r, live, unfrozen, perf)
     S = perf.shape[0]
     rl = torch.where(live, r, 0.0)
     uf = unfrozen.to(torch.float32)
@@ -156,9 +194,16 @@ def progressive_filling(provider, consumer, p_l, live, perf, round_fn, *,
     """The round recurrence of ``ref.maxmin_solve_ref`` driven from the host:
     one ``plan_fn(provider, consumer, live, None, S)`` (default
     :func:`fill_plan`) before the first round, then one ``round_fn(plan, r,
-    live, unfrozen, perf)`` per round; the host reads ``unfrozen.any()``
-    once per round."""
+    live, unfrozen, perf)`` per round; the host reads "any lane has an
+    unfrozen flow" once per round.  Each lane's round raises its unfrozen
+    flows by its own ``delta``; a lane with no unfrozen flow left gets
+    ``delta = 0`` and stays as it was, so each lane ends with the rates
+    of its rounds alone (the rounds all lanes share start together, and
+    ``max_iters`` caps every lane alike)."""
     plan_fn = fill_plan if plan_fn is None else plan_fn
+    one = provider.dim() == 1
+    provider, consumer, p_l, live, perf = _lanes(provider, consumer, p_l,
+                                                 live, perf)
     prov, cons = provider.long(), consumer.long()
     r = torch.zeros(p_l.shape, dtype=torch.float32, device=p_l.device)
     unfrozen = live
@@ -168,22 +213,24 @@ def progressive_filling(provider, consumer, p_l, live, perf, round_fn, *,
             break
         if plan is None:
             # unfrozen stays a subset of live: one plan serves every round
-            plan = plan_fn(provider, consumer, live, None, perf.shape[0])
+            plan = plan_fn(provider, consumer, live, None, perf.shape[-1])
         dp, dc = round_fn(plan, r, live, unfrozen, perf)
-        df = torch.minimum(dp[prov], dc[cons])
+        df = torch.minimum(dp.gather(1, prov), dc.gather(1, cons))
         df = torch.minimum(df, torch.clamp_min(p_l - r, 0.0))
         df = torch.where(unfrozen, df, BIG)
-        delta = torch.min(df)
+        delta = torch.amin(df, dim=1, keepdim=True)
         delta = torch.where(torch.isfinite(delta) & (delta < BIG), delta, 0.0)
         r = torch.where(unfrozen, r + delta, r)
         tight = df <= delta * (1.0 + rel_eps) + 1e-12
         unfrozen = unfrozen & ~tight
-    return torch.where(live, r, 0.0)
+    r = torch.where(live, r, 0.0)
+    return r[0] if one else r
 
 
 def maxmin_solve_plain(provider, consumer, p_l, live, perf, *,
                        max_iters: int = 64, rel_eps: float = 1e-5):
-    """Full progressive-filling solve (``ref.maxmin_solve_ref``)."""
+    """Full progressive-filling solve (``ref.maxmin_solve_ref``), of each
+    lane."""
     return progressive_filling(provider, consumer, p_l, live, perf,
                                fill_round_plain, plan_fn=fill_plan_plain,
                                max_iters=max_iters, rel_eps=rel_eps)
@@ -200,20 +247,35 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("maxmin")
     if not getattr(lib, "_typed", False):
-        lib.maxmin_solve_launch.argtypes = [_P] * 7 + [_I, _I, ctypes.c_float,
-                                                       _P]
+        lib.maxmin_solve_launch.argtypes = [_P] * 7 + [_I, _I, _I, _I,
+                                                       ctypes.c_float, _P]
         lib.maxmin_solve_launch.restype = _I
         lib.maxmin_solve_scratch_bytes.argtypes = [_I]
         lib.maxmin_solve_scratch_bytes.restype = ctypes.c_size_t
-        lib.fill_plan_launch.argtypes = [_P] * 9 + [_I, _I, _P]
+        lib.fill_plan_launch.argtypes = [_P] * 9 + [_I, _I, _I, _P]
         lib.fill_plan_launch.restype = _I
-        lib.fill_round_launch.argtypes = [_P] * 10 + [_I, _P]
+        lib.fill_round_launch.argtypes = [_P] * 10 + [_I, _I, _I, _P]
         lib.fill_round_launch.restype = _I
         lib._typed = True
     return lib
 
 
-def _check(name: str, device, C: int, S: int, **tensors):
+# lanes one launch takes: the round's lanes are a grid's y extent
+MAX_LANES = 65535
+
+
+def _lane_shape(name: str, t: torch.Tensor) -> tuple[int, ...]:
+    """``()`` for one problem, ``(B,)`` for B lanes; raises on other
+    ranks and on more lanes than one launch takes."""
+    if t.dim() == 1:
+        return ()
+    if t.dim() == 2 and 1 <= t.shape[0] <= MAX_LANES:
+        return (t.shape[0],)
+    raise ValueError(f"{name}: expected [C] or [B, C] with 1 <= B <= "
+                     f"{MAX_LANES}, got shape {tuple(t.shape)}")
+
+
+def _check(name: str, device, C: int, S: int, lead: tuple, **tensors):
     for arg, (t, dtype, n) in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected "
@@ -221,9 +283,9 @@ def _check(name: str, device, C: int, S: int, **tensors):
         if t.dtype != dtype:
             raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected "
                             f"{dtype}")
-        if t.shape != (n,):
+        if t.shape != lead + (n,):
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
-                             f"expected ({n},)")
+                             f"expected {lead + (n,)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     if C >= 2 ** 31 or S >= 2 ** 31 - 1:
@@ -259,23 +321,28 @@ def _thr_scale(rel_eps: float) -> float:
 
 @functools.lru_cache(maxsize=None)
 def solve_scratch_bytes(n_flows: int) -> int:
-    """Bytes of the solve's global workspace for ``n_flows`` flows (0 when
-    all of them fit in shared memory)."""
+    """Bytes of one lane's slice of the solve's global workspace for
+    ``n_flows`` flows (0 when all of them fit in shared memory)."""
     return int(_lib().maxmin_solve_scratch_bytes(n_flows))
 
 
 def maxmin_solve(provider, consumer, p_l, live, perf, *,
                  max_iters: int = 64, rel_eps: float = 1e-5):
-    """Max-min fair rates by progressive filling, solved in one launch.
+    """Max-min fair rates by progressive filling, solved in one launch for
+    one problem ([C] flows, [S] spreaders) or for B lanes ([B, C],
+    [B, S]), one block a lane.
 
     Provider and consumer indices must lie in ``[0, S)``.  Guard call sites
-    with :func:`solve_fits`.  Returns a fresh ``r`` [C] each call."""
+    with :func:`solve_fits`.  Returns a fresh ``r`` of the flows' shape
+    each call."""
     if not _route(provider, "maxmin_solve"):
         return maxmin_solve_plain(provider, consumer, p_l, live, perf,
                                   max_iters=max_iters, rel_eps=rel_eps)
-    C, S = provider.shape[0], perf.shape[0]
+    lead = _lane_shape("maxmin_solve", provider)
+    B = lead[0] if lead else 1
+    C, S = provider.shape[-1], perf.shape[-1]
     dev = provider.device
-    _check("maxmin_solve", dev, C, S,
+    _check("maxmin_solve", dev, C, S, lead,
            provider=(provider, torch.int32, C),
            consumer=(consumer, torch.int32, C),
            p_l=(p_l, torch.float32, C), live=(live, torch.bool, C),
@@ -287,17 +354,17 @@ def maxmin_solve(provider, consumer, p_l, live, perf, *,
     if C >= MAX_SOLVE_C:
         raise ValueError(f"maxmin_solve: C={C} flows exceed the sort's "
                          f"limit MAX_SOLVE_C={MAX_SOLVE_C}")
-    r = torch.empty((C,), dtype=torch.float32, device=dev)
+    r = torch.empty(lead + (C,), dtype=torch.float32, device=dev)
     n_scratch = solve_scratch_bytes(C)
-    # one workspace, carved by the kernel, only when the live flows may
-    # outgrow shared memory
-    scratch = (torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
+    # one workspace, a slice a lane carved by the kernel, only when the
+    # live flows may outgrow shared memory
+    scratch = (torch.empty((B * n_scratch,), dtype=torch.uint8, device=dev)
                if n_scratch else None)
     err = _lib().maxmin_solve_launch(
         provider.data_ptr(), consumer.data_ptr(), p_l.data_ptr(),
         live.data_ptr(), perf.data_ptr(), r.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), C, int(max_iters),
-        _thr_scale(rel_eps), _stream(dev))
+        None if scratch is None else scratch.data_ptr(), C, S, B,
+        int(max_iters), _thr_scale(rel_eps), _stream(dev))
     if err != 0:
         raise RuntimeError(f"maxmin_solve: kernel launch failed with CUDA "
                            f"error {err}")
@@ -311,28 +378,32 @@ maxmin_solve.launches = 0
 def fill_plan(provider, consumer, live, unfrozen, n_spreaders: int
               ) -> FillPlan:
     """The plan of the flows with ``live | unfrozen`` (``unfrozen`` may be
-    None), built on the card by one launch."""
+    None), built on the card by one launch, one block a lane."""
     if not _route(provider, "fill_plan"):
         return fill_plan_plain(provider, consumer, live, unfrozen,
                                n_spreaders)
-    C, S = provider.shape[0], n_spreaders
+    lead = _lane_shape("fill_plan", provider)
+    B = lead[0] if lead else 1
+    C, S = provider.shape[-1], n_spreaders
     dev = provider.device
     masks = dict(live=(live, torch.bool, C))
     if unfrozen is not None:
         masks["unfrozen"] = (unfrozen, torch.bool, C)
-    _check("fill_plan", dev, C, S, provider=(provider, torch.int32, C),
+    _check("fill_plan", dev, C, S, lead, provider=(provider, torch.int32, C),
            consumer=(consumer, torch.int32, C), **masks)
     i32 = dict(dtype=torch.int32, device=dev)
-    plan = FillPlan(torch.empty((S + 1,), **i32), torch.empty((C,), **i32),
-                    torch.empty((S + 1,), **i32), torch.empty((C,), **i32))
+    plan = FillPlan(torch.empty(lead + (S + 1,), **i32),
+                    torch.empty(lead + (C,), **i32),
+                    torch.empty(lead + (S + 1,), **i32),
+                    torch.empty(lead + (C,), **i32))
     scratch = (None if S <= MAX_PLAN_SMEM_S
-               else torch.empty((2 * (S + 1),), **i32))
+               else torch.empty((B * 2 * (S + 1),), **i32))
     err = _lib().fill_plan_launch(
         provider.data_ptr(), consumer.data_ptr(), live.data_ptr(),
         0 if unfrozen is None else unfrozen.data_ptr(),
         plan.off_p.data_ptr(), plan.csr_p.data_ptr(), plan.off_c.data_ptr(),
         plan.csr_c.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-        C, S, _stream(dev))
+        C, S, B, _stream(dev))
     if err != 0:
         raise RuntimeError(f"fill_plan: kernel launch failed with CUDA "
                            f"error {err}")
@@ -345,27 +416,29 @@ fill_plan.launches = 0
 
 def fill_round(plan: FillPlan, r, live, unfrozen, perf):
     """Per-spreader headroom ``(dp, dc)`` of one round, walked over a plan
-    that holds every flow with ``live | unfrozen``.  Its launches count in
-    ``fill_stats.launches``: it is the kernel that replaces the TPU
-    ``fill_stats``."""
+    that holds every flow with ``live | unfrozen``, in one launch for every
+    lane.  Its launches count in ``fill_stats.launches``: it is the kernel
+    that replaces the TPU ``fill_stats``."""
     if not _route(r, "fill_round"):
         return fill_round_plain(plan, r, live, unfrozen, perf)
-    C, S = r.shape[0], perf.shape[0]
+    lead = _lane_shape("fill_round", r)
+    B = lead[0] if lead else 1
+    C, S = r.shape[-1], perf.shape[-1]
     dev = r.device
-    _check("fill_round", dev, C, S, r=(r, torch.float32, C),
+    _check("fill_round", dev, C, S, lead, r=(r, torch.float32, C),
            live=(live, torch.bool, C), unfrozen=(unfrozen, torch.bool, C),
            perf=(perf, torch.float32, S), off_p=(plan.off_p, torch.int32,
                                                   S + 1),
            off_c=(plan.off_c, torch.int32, S + 1),
            csr_p=(plan.csr_p, torch.int32, C),
            csr_c=(plan.csr_c, torch.int32, C))
-    dp = torch.empty((S,), dtype=torch.float32, device=dev)
-    dc = torch.empty((S,), dtype=torch.float32, device=dev)
+    dp = torch.empty(lead + (S,), dtype=torch.float32, device=dev)
+    dc = torch.empty(lead + (S,), dtype=torch.float32, device=dev)
     err = _lib().fill_round_launch(
         plan.off_p.data_ptr(), plan.csr_p.data_ptr(), plan.off_c.data_ptr(),
         plan.csr_c.data_ptr(), r.data_ptr(), live.data_ptr(),
         unfrozen.data_ptr(), perf.data_ptr(), dp.data_ptr(), dc.data_ptr(),
-        S, _stream(dev))
+        C, S, B, _stream(dev))
     if err != 0:
         raise RuntimeError(f"fill_round: kernel launch failed with CUDA "
                            f"error {err}")
@@ -375,12 +448,12 @@ def fill_round(plan: FillPlan, r, live, unfrozen, perf):
 
 def fill_stats(provider, consumer, r, live, unfrozen, perf):
     """Per-spreader headroom ``(dp, dc)`` of one progressive-filling round
-    (``ref.fill_stats_ref``, for any inputs).  On the card it builds its own
-    plan and walks it: two launches, one :func:`fill_plan` and one
-    :func:`fill_round`."""
+    (``ref.fill_stats_ref``, for any inputs), of one problem or of each
+    lane.  On the card it builds its own plan and walks it: two launches,
+    one :func:`fill_plan` and one :func:`fill_round`."""
     if not _route(provider, "fill_stats"):
         return fill_stats_plain(provider, consumer, r, live, unfrozen, perf)
-    S = perf.shape[0]
+    S = perf.shape[-1]
     plan = fill_plan(provider, consumer, live, unfrozen, S)
     return fill_round(plan, r, live, unfrozen, perf)
 

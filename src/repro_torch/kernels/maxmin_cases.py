@@ -137,3 +137,52 @@ def solve_cases() -> list[SolveCase]:
         cases.append(_with_live_count(
             sparse._replace(label=f"live_{n_live}_of_4596"), n_live, seed))
     return cases
+
+
+class LaneCase(NamedTuple):
+    """A batch of solves of one shape, one lane each (the lane axis of
+    ``maxmin_solve``): each lane must equal the solve of its row alone."""
+    label: str
+    lanes: tuple              # SolveCase per lane, all of one (C, S)
+    max_iters: int = 64
+
+    def args(self) -> tuple:
+        """Each argument stacked over the lanes: [B, C] / [B, S]."""
+        return tuple(np.stack(xs) for xs in zip(*(c.args()
+                                                   for c in self.lanes)))
+
+
+def lane_cases() -> list[LaneCase]:
+    """Batches whose lanes need different round counts and code paths:
+    a lane with no live flow, lanes that freeze in one round and lanes
+    that run many, NaN and inf lanes beside finite ones, and live counts
+    on either side of the solve's shared-memory and hot-array capacities
+    (each lane then in its own slice of the workspace)."""
+    def lane(label, C, S, seed, n_live=None, **kw):
+        case = _random(label, C, S, seed, **kw)
+        return case if n_live is None else _with_live_count(case, n_live,
+                                                            seed + 1)
+
+    mixed = [lane("random", 300, 40, 50),
+             lane("no_live", 300, 40, 51, n_live=0),
+             lane("one_live", 300, 40, 52, n_live=1),
+             lane("all_live", 300, 40, 53, live_p=1.0)]
+    one = lane("one_provider", 300, 40, 54, live_p=0.9)
+    perf = one.perf.copy()
+    perf[0] = 1.0e4
+    mixed.append(one._replace(provider=np.zeros(300, np.int32), perf=perf))
+    odd = lane("inf_and_nan_p_l", 300, 40, 55)
+    p_l = odd.p_l.copy()
+    p_l[::3] = np.inf
+    p_l[int(np.flatnonzero(odd.live)[5])] = np.nan
+    mixed.append(odd._replace(p_l=p_l))
+    hot = [lane("smem_plus_1", 5200, 300, 60, n_live=SOLVE_SMEM_FLOWS + 1),
+           lane("sparse", 5200, 300, 62, n_live=14),
+           lane("hot_plus_1", 5200, 300, 64, n_live=SOLVE_HOT_FLOWS + 1)]
+    sparse = [lane(f"live_{n}", 4596, 6098, 70 + 2 * i, n_live=n)
+              for i, n in enumerate((0, 1, 14, 32, 33, 16, 20, 200))]
+    capped = [lane("capped_a", 1037, 150, 80), lane("capped_b", 1037, 150, 82)]
+    return [LaneCase("mixed_300x40", tuple(mixed)),
+            LaneCase("workspace_5200x300", tuple(hot)),
+            LaneCase("main_path_4596x6098", tuple(sparse)),
+            LaneCase("max_iters_2", tuple(capped), max_iters=2)]

@@ -13,7 +13,7 @@ import math
 import torch
 
 from ...core import machine as mc
-from ...core.arrays import KIND_HIDDEN, segment_sum
+from ...core.arrays import KIND_HIDDEN, lane_sum, segment_sum
 from ...core.energy import PM_OFF, PM_RUNNING, PM_SWITCHING_OFF, PM_SWITCHING_ON
 from ...core.loop.state import TASK_PENDING, CloudState
 from ...core.loop.vm_sched import serve_queue
@@ -34,25 +34,27 @@ def wake_sleep_pass(spec, params, trace, st: CloudState) -> CloudState:
     the machine's hidden-consumer flow (paper Table 2)."""
     P = spec.n_pm
     table = params.power
-    queued = (st.task_state == TASK_PENDING) & (trace.arrival <= st.t)
-    q_cores = torch.sum(torch.where(queued, trace.cores, 0.0))
+    t = st.t[:, None]
+    queued = (st.task_state == TASK_PENDING) & (trace.arrival <= t)
+    # each lane summed alone: the wake count must not hang on the lane count
+    q_cores = lane_sum(torch.where(queued, trace.cores, 0.0))
     soon = mc.pm_future_capacity(st.pstate)
-    cap_soon = torch.sum(torch.where(soon, st.free_cores, 0.0))
+    cap_soon = lane_sum(torch.where(soon, st.free_cores, 0.0))
     deficit = q_cores - cap_soon
     k = torch.ceil(torch.clamp_min(deficit, 0.0) / params.pm_cores).to(
         torch.int32)
 
     off = st.pstate == PM_OFF
-    wake = off & (torch.cumsum(off.to(torch.int32), 0) <= k)
+    wake = off & (torch.cumsum(off.to(torch.int32), 1) <= k[:, None])
     idle = ((st.pstate == PM_RUNNING) & (_hosted_per_pm(spec, st) == 0)
-            & ~queued.any())
+            & ~queued.any(-1, keepdim=True))
 
-    boot_s = table.duration[PM_SWITCHING_ON]
-    halt_s = table.duration[PM_SWITCHING_OFF]
+    boot_s = table.duration[:, PM_SWITCHING_ON:PM_SWITCHING_ON + 1]
+    halt_s = table.duration[:, PM_SWITCHING_OFF:PM_SWITCHING_OFF + 1]
     pstate = torch.where(wake, PM_SWITCHING_ON, st.pstate)
     pstate = torch.where(idle, PM_SWITCHING_OFF, pstate)
-    pstate_end = torch.where(wake, st.t + boot_s, st.pstate_end)
-    pstate_end = torch.where(idle, st.t + halt_s, pstate_end)
+    pstate_end = torch.where(wake, t + boot_s, st.pstate_end)
+    pstate_end = torch.where(idle, t + halt_s, pstate_end)
     st = st._replace(pstate=pstate, pstate_end=pstate_end)
 
     if spec.complex_power:
@@ -63,21 +65,22 @@ def wake_sleep_pass(spec, params, trace, st: CloudState) -> CloudState:
         dev = st.pstate.device
         pm = torch.arange(P, dtype=torch.int32, device=dev)
         trans = wake | idle
-        amount = torch.where(wake, params.hidden_work_on,
-                             params.hidden_work_off)
+        amount = torch.where(wake, params.hidden_work_on[:, None],
+                             params.hidden_work_off[:, None])
 
         def hid(field, value):
-            return torch.cat([field[:V], torch.where(trans, value, field[V:])])
+            return torch.cat([field[:, :V],
+                              torch.where(trans, value, field[:, V:])], dim=1)
 
         st = st._replace(
             pstate_end=torch.where(trans, math.inf, pstate_end),
             f_pr=hid(st.f_pr, amount),
             f_total=hid(st.f_total, amount),
-            f_pl=hid(st.f_pl, 0.2 * params.pm_cores),
+            f_pl=hid(st.f_pl, (0.2 * params.pm_cores)[:, None]),
             f_prov=hid(st.f_prov, lay.cpu0 + pm),
             f_cons=hid(st.f_cons, lay.hidden0 + pm),
             f_active=hid(st.f_active, True),
-            f_release=hid(st.f_release, st.t),
+            f_release=hid(st.f_release, t),
             f_kind=hid(st.f_kind, KIND_HIDDEN),
         )
     return st
@@ -97,17 +100,18 @@ def ondemand(spec, params, ctx, st: CloudState) -> CloudState:
 
 def _queued_any(spec, params, ctx, st):
     return ((st.task_state == TASK_PENDING)
-            & (ctx.trace.arrival <= st.t)).any()
+            & (ctx.trace.arrival <= st.t[:, None])).any(-1)
 
 
 def _never(spec, params, ctx, st):
-    return torch.zeros((), dtype=torch.bool, device=st.t.device)
+    return torch.zeros(st.t.shape, dtype=torch.bool, device=st.t.device)
 
 
 def _wake_sleep_trigger(spec, params, ctx, st):
-    queued = (st.task_state == TASK_PENDING) & (ctx.trace.arrival <= st.t)
+    queued = ((st.task_state == TASK_PENDING)
+              & (ctx.trace.arrival <= st.t[:, None]))
     loadless = (st.pstate == PM_RUNNING) & (_hosted_per_pm(spec, st) == 0)
-    return queued.any() | loadless.any()
+    return queued.any(-1) | loadless.any(-1)
 
 
 FLOW_FIELDS = ("f_pr", "f_total", "f_pl", "f_prov", "f_cons", "f_active",

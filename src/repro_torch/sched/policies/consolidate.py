@@ -37,13 +37,13 @@ def consolidation_step(spec, params, st: CloudState) -> CloudState:
     running, used, movable, n_movable = host_load_facts(spec, params, st)
     donor, src = idle_dominated_donor(params, st, running, used, n_movable)
     on_src, v = smallest_victim_on(st, movable, src)
-    need = st.vm_cores[v]
+    need = st.vm_cores.gather(1, v)
 
     fit = feasible_destinations(running, used, st.free_cores, src, need)
-    dst = torch.argmin(torch.where(fit, st.free_cores, INF), dim=0,
+    dst = torch.argmin(torch.where(fit, st.free_cores, INF), dim=-1,
                        keepdim=True)
 
-    do = donor.any() & on_src.any() & fit.any()
+    do = donor.any(-1) & on_src.any(-1) & fit.any(-1)
     return migrate_one(spec, params, st, v, dst, do)
 
 

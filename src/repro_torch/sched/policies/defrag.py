@@ -27,19 +27,20 @@ def defrag_step(spec, params, trace, st: CloudState) -> CloudState:
     """One masked bin-packing move: the least-loaded donor's smallest VM
     onto the most-loaded running host that fits it."""
     running, used, movable, n_movable = host_load_facts(spec, params, st)
-    queued = (st.task_state == TASK_PENDING) & (trace.arrival <= st.t)
+    queued = ((st.task_state == TASK_PENDING)
+              & (trace.arrival <= st.t[:, None]))
 
     donor = running & (n_movable > 0)
-    src = torch.argmin(torch.where(donor, used, INF), dim=0, keepdim=True)
+    src = torch.argmin(torch.where(donor, used, INF), dim=-1, keepdim=True)
 
     on_src, v = smallest_victim_on(st, movable, src)
-    need = st.vm_cores[v]
+    need = st.vm_cores.gather(1, v)
 
     # bin-packing target: the most-loaded running host the victim fits
     fit = feasible_destinations(running, used, st.free_cores, src, need)
-    dst = torch.argmax(torch.where(fit, used, -INF), dim=0, keepdim=True)
+    dst = torch.argmax(torch.where(fit, used, -INF), dim=-1, keepdim=True)
 
-    do = ~queued.any() & donor.any() & on_src.any() & fit.any()
+    do = ~queued.any(-1) & donor.any(-1) & on_src.any(-1) & fit.any(-1)
     return migrate_one(spec, params, st, v, dst, do)
 
 

@@ -37,9 +37,10 @@ def evacuation_step(spec, params, st: CloudState) -> CloudState:
 
     # victims: the donor's K smallest running VMs (cheapest to re-place)
     on_src = movable & (st.vm_host == src)
-    order = torch.argsort(torch.where(on_src, st.vm_cores, INF), stable=True)
-    vs = order[:K]
-    valid = on_src[vs]
+    order = torch.argsort(torch.where(on_src, st.vm_cores, INF), dim=-1,
+                          stable=True)
+    vs = order[:, :K]
+    valid = on_src.gather(1, vs)
 
     # plan destinations in turn: each move sees the free cores left by the
     # moves before it (best fit and load ordering as in consolidation,
@@ -48,16 +49,16 @@ def evacuation_step(spec, params, st: CloudState) -> CloudState:
     free = st.free_cores
     dsts, fits = [], []
     for k in range(K):
-        need = st.vm_cores[vs[k:k + 1]]
+        need = st.vm_cores.gather(1, vs[:, k:k + 1])
         fit = feasible_destinations(running, used, free, src, need)
-        dst = torch.argmin(torch.where(fit, free, INF), dim=0, keepdim=True)
-        ok = fit.any()
+        dst = torch.argmin(torch.where(fit, free, INF), dim=-1, keepdim=True)
+        ok = fit.any(-1, keepdim=True)
         free = torch.where(pm == dst, free + torch.where(ok, -need, 0.0),
                            free)
         dsts.append(dst)
-        fits.append(ok.reshape(1))
-    ok = valid & torch.cat(fits) & donor.any()
-    return migrate_many(spec, params, st, vs, torch.cat(dsts), ok)
+        fits.append(ok)
+    ok = valid & torch.cat(fits, dim=1) & donor.any(-1, keepdim=True)
+    return migrate_many(spec, params, st, vs, torch.cat(dsts, dim=1), ok)
 
 
 def evacuate(spec, params, ctx, st: CloudState) -> CloudState:

@@ -6,13 +6,13 @@ facts (who is RUNNING, how loaded, who hosts migratable VMs), and the
 first and last share the idle-dominance trigger: one implementation here,
 so a trigger or a tie-break cannot drift between the policies.
 
-Every choice is a device tensor of one element (``argmin`` / ``argmax``
-with ``keepdim``, first extreme index on ties as in the reference, index
-0 when every lane is ``±inf``), so nothing is read back to the host.
+Every choice is a device tensor of one element a lane ([B, 1]: ``argmin``
+/ ``argmax`` along the lane's row with ``keepdim``, first extreme index on
+ties as in the reference, index 0 when every entry is ``±inf``), so
+nothing is read back to the host.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ...core import machine as mc
@@ -28,7 +28,7 @@ def host_load_facts(spec, params, st: CloudState):
     allocated cores, per-VM migratable (RUNNING) mask, per-PM migratable
     counts."""
     running = st.pstate == PM_RUNNING
-    used = params.pm_cores - st.free_cores
+    used = params.pm_cores[:, None] - st.free_cores
     movable = st.vstage == mc.VM_RUNNING
     n_movable = segment_sum(movable.to(torch.int32), st.vm_host, spec.n_pm)
     return running, used, movable, n_movable
@@ -42,10 +42,11 @@ def idle_dominated_donor(params, st: CloudState, running, used, n_movable):
     pm_w = st.meters.pm.last_power
     idle_w = st.meters.pm_idle.last_power
     idle_frac = idle_w / torch.clamp_min(pm_w, 1e-30)
-    # the reference compares against the threshold rounded to f32
-    frac = float(np.float32(params.consolidate_idle_frac))
+    # the reference compares against the threshold rounded to f32, as the
+    # lane's f32 parameter holds it
+    frac = params.consolidate_idle_frac[:, None]
     donor = running & (n_movable > 0) & (idle_frac > frac)
-    src = torch.argmin(torch.where(donor, used, INF), dim=0, keepdim=True)
+    src = torch.argmin(torch.where(donor, used, INF), dim=-1, keepdim=True)
     return donor, src
 
 
@@ -54,16 +55,16 @@ def feasible_destinations(running, used, free_cores, src, need):
     free, not the source, and at least as loaded as the source — the
     load-ordering guard that makes every move packing (never spreading)
     and stops ping-pong between two equally loaded hosts."""
-    P = running.shape[0]
+    P = running.shape[-1]
     return (running & (free_cores >= need)
             & (torch.arange(P, device=running.device) != src)
-            & (used >= used[src]))
+            & (used >= used.gather(1, src)))
 
 
 def smallest_victim_on(st: CloudState, movable, src):
     """``(on_src, v)``: the source host's migratable VMs and the
     smallest-cores one (the cheapest serialized state to re-place)."""
     on_src = movable & (st.vm_host == src)
-    v = torch.argmin(torch.where(on_src, st.vm_cores, INF), dim=0,
+    v = torch.argmin(torch.where(on_src, st.vm_cores, INF), dim=-1,
                      keepdim=True)
     return on_src, v

@@ -5,10 +5,15 @@ registered under a stable integer code per management layer (``"pm"``
 physical-machine state scheduling, ``"vm"`` request dispatching).  Codes
 are contiguous and append-only and keep the reference's numbering.
 
-A single scenario knows its policy codes on the host, so the loop stages
-call the selected policy directly (the reference ``lax.switch``es over
-:func:`stage_branches`).  A policy's ``trigger`` is kept as metadata: it is
-a necessary condition for the policy to act, and the port runs the body
+The engine reads each lane's policy codes to the host once per call
+(``LaneParams.vm_codes`` / ``pm_codes``), so the loop stages dispatch in
+Python (:func:`run_stage`; the reference ``lax.switch``es over
+:func:`stage_branches`).  When one code covers the batch, that policy runs
+alone; otherwise each code that occurs runs on the whole batch and each
+lane keeps its own code's result, a leaf-wise select, which is what
+``vmap`` makes of ``lax.switch`` (leaving out the codes that occur in no
+lane is exact).  A policy's ``trigger`` is kept as metadata: it is a
+necessary condition for the policy to act, and the port runs the body
 unconditionally, which the trigger contract makes exact.
 """
 from __future__ import annotations
@@ -118,6 +123,24 @@ def code_of(layer: str, name: str) -> int:
     return get(layer, name).code
 
 
+def run_stage(layer: str, ctx, st):
+    """The policy stage of ``layer``: each lane of ``st`` through the policy
+    its code names (``ctx.params``' host codes of that layer)."""
+    from ..core.loop.state import select_lanes
+
+    params = ctx.params
+    codes = params.vm_codes if layer == "vm" else params.pm_codes
+    present = sorted(set(codes))
+    if len(present) == 1:
+        return get(layer, present[0]).fn(ctx.spec, params, ctx, st)
+    lane_code = params.vm_sched if layer == "vm" else params.pm_sched
+    out = st
+    for code in present:
+        new = get(layer, code).fn(ctx.spec, params, ctx, st)
+        out = select_lanes(lane_code == code, new, out)
+    return out
+
+
 def stage_branches(layer: str, ctx) -> tuple[Callable, ...]:
     """One ``(st) -> st`` callable per code, in code order, closed over the
     pass's :class:`~repro_torch.core.loop.state.StageCtx`."""
@@ -135,7 +158,8 @@ def trigger_branches(layer: str, ctx) -> tuple[Callable, ...]:
 
     def bind(p):
         if p.trigger is None:
-            return lambda st: torch.ones((), dtype=torch.bool)
+            return lambda st: torch.ones(st.t.shape, dtype=torch.bool,
+                                         device=st.t.device)
         return lambda st: p.trigger(ctx.spec, ctx.params, ctx, st)
 
     return tuple(bind(p) for p in policies(layer))

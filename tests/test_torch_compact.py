@@ -24,6 +24,7 @@ from repro.core.trace import synthetic_trace as jsynthetic_trace
 from repro_torch.core import engine as teng
 from repro_torch.core import machine as mc
 from repro_torch.core.loop import compact as cpk
+from repro_torch.core.loop.state import add_lane, drop_lane
 from repro_torch.core.trace import synthetic_trace
 from test_torch_engine import _assert_matches, jflat
 
@@ -212,7 +213,8 @@ def _random_state(seed, n_pm=6, n_vm=40, compact=16, p_active=0.2):
 def test_build_compact_matches_jax(seed, p_active):
     spec, st, tspec, tst = _random_state(seed, p_active=p_active)
     want = jcpk.build_compact(spec, st)
-    got = cpk.build_compact(tspec, tst)
+    # the port builds the buckets of a lane axis: one lane here
+    got = drop_lane(cpk.build_compact(tspec, add_lane(tst)))
     for field in cpk.Compact._fields:
         np.testing.assert_array_equal(
             getattr(got, field).numpy(), np.asarray(getattr(want, field)),
@@ -257,13 +259,14 @@ def test_compacted_advance_and_observe_equal_dense(seed, complex_power):
         f_pl=torch.from_numpy(rng.uniform(0.5, 20.0, F).astype(np.float32)),
         f_release=torch.from_numpy(rng.uniform(-1.0, 1.0, F)
                                    .astype(np.float32)))
-    trace = synthetic_trace(8, tspec.n_pm, seed=seed).to("cpu")
+    trace = add_lane(synthetic_trace(8, tspec.n_pm, seed=seed).to("cpu"))
+    lanes = teng.lane_params(params, 1, "cpu")
     out = {}
     for name, spec in (("comp", tspec), ("dense", teng.dense_spec(tspec))):
-        ctx = StageCtx(spec=spec, params=params, trace=trace,
-                       t_stop=torch.tensor(float("inf")),
-                       arrival_sorted=torch.sort(trace.arrival).values)
-        ctx, st = advance.advance(ctx, tst)
+        ctx = StageCtx(spec=spec, params=lanes, trace=trace,
+                       t_stop=torch.tensor([float("inf")]),
+                       arrival_sorted=torch.sort(trace.arrival, -1).values)
+        ctx, st = advance.advance(ctx, add_lane(tst))
         ctx, st = observe.observe_stage(ctx, st)
         out[name] = (ctx, st)
     (cc, cs), (dc, ds) = out["comp"], out["dense"]
@@ -282,9 +285,10 @@ def test_compacted_advance_and_observe_equal_dense(seed, complex_power):
 
 def test_gather_and_scatter_flows_round_trip():
     _, _, tspec, tst = _random_state(5, p_active=0.25)
+    tst = add_lane(tst)
     cp = cpk.build_compact(tspec, tst)
-    F = tst.f_pr.shape[0]
-    vals = torch.arange(F, dtype=torch.float32) + 0.5
+    F = tst.f_pr.shape[-1]
+    vals = (torch.arange(F, dtype=torch.float32) + 0.5)[None]
     b = cpk.gather_flows(cp, vals, -1.0)
     assert torch.equal(b[~cp.fvalid], torch.full_like(b[~cp.fvalid], -1.0))
     back = cpk.scatter_flows(cp, F, b)

@@ -61,6 +61,51 @@ def test_simulate_runs_without_jax_in_process():
     assert out.stdout.strip() == "ok"
 
 
+def test_simulate_batch_runs_with_jax_blocked():
+    """The batched path (stack_params, stack_traces, simulate_batch and the
+    lane-axis kernel wrappers' plain versions) runs with every import of
+    JAX or the reference refused."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None      # any import of them now fails\n"
+        "from repro_torch.core import engine\n"
+        "from repro_torch.core.trace import synthetic_trace\n"
+        "spec, p = engine.make_cloud(n_pm=2, n_vm=4, pm_cores=4.0,\n"
+        "                            pm_sched='ondemand', compact=4)\n"
+        "import dataclasses\n"
+        "pts = [dataclasses.replace(p, net_bw=b, pm_sched=c)\n"
+        "       for b, c in ((50.0, 1), (125.0, 2))]\n"
+        "trs = engine.stack_traces([synthetic_trace(6, 3, seed=s)\n"
+        "                           for s in (1, 2)])\n"
+        "res = engine.simulate_batch(spec, trs, engine.stack_params(pts),\n"
+        "                            device='cpu')\n"
+        "assert res.n_events.shape == (2,) and bool((res.n_events > 1).all())\n"
+        "assert res.readings(spec)['iaas_total'].shape == (2,)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_batch_entry_points_need_a_card_or_cpu():
+    """``simulate_batch`` runs on CUDA unless asked for the CPU, and never
+    falls back to it quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    spec, params = teng.make_cloud(n_pm=2, n_vm=4, pm_cores=4.0)
+    trace = teng.stack_traces([synthetic_trace(4, 2, seed=s)
+                               for s in (0, 1)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teng.simulate_batch(spec, trace, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        teng.simulate_batch(spec, trace, params, device="cuda")
+    res = teng.simulate_batch(spec, trace, params, device="cpu")
+    assert res.n_events.device.type == "cpu"
+
+
 def test_lm_forward_and_serve_run_with_jax_blocked():
     code = (
         "import sys\n"

@@ -164,7 +164,8 @@ def test_maxmin_rates_matches_reference(above_gate, monkeypatch):
 def test_equal_share_rates_matches_reference():
     f = _flows(200, 30, 11)
     args = (f["provider"], f["consumer"], f["p_l"], f["live"], f["perf"])
-    got = tfair.equal_share_rates(*map(_t, args))
+    # the engine's sharing schedulers take a lane axis: one lane here
+    got = tfair.equal_share_rates(*(_t(a)[None] for a in args))[0]
     want = jfair.equal_share_rates(*map(_j, args))
     _close(got, want)
 

@@ -30,11 +30,10 @@ from repro_torch.core import engine as teng
 from repro_torch.core import machine as mc
 from repro_torch.core.energy import PM_OFF, PM_RUNNING, PM_SWITCHING_OFF
 from repro_torch.core.energy import tenant_energy
-from repro_torch.core.loop.migrate import migrate_one
-from repro_torch.core.loop.state import TASK_DONE
+from repro_torch.core.loop import migrate
+from repro_torch.core.loop.state import TASK_DONE, add_lane, drop_lane
 from repro_torch.sched import registry
-from repro_torch.sched.policies.consolidate import consolidation_step
-from repro_torch.sched.policies.evacuate import evacuation_step
+from repro_torch.sched.policies import consolidate, evacuate
 from test_torch_engine import _assert_matches, jflat
 
 SPEC_FIELDS = {f.name for f in dataclasses.fields(teng.CloudSpec)}
@@ -220,6 +219,21 @@ def _cloud(pm_sched, **kw):
 def _run(spec, params, trace: dict, **kw):
     return teng.simulate(spec, teng.trace_from_numpy(trace, device="cpu"),
                          params, device="cpu", **kw)
+
+
+def _on_one_lane(step):
+    """A loop-stage function (which takes a lane axis) applied to one
+    scenario's state: the state and params as the batch of one lane."""
+    def run(spec, params, st, *args):
+        lanes = [torch.as_tensor(a)[None] for a in args]
+        return drop_lane(step(spec, teng.lane_params(params, 1, "cpu"),
+                              add_lane(st), *lanes))
+    return run
+
+
+evacuation_step = _on_one_lane(evacuate.evacuation_step)
+consolidation_step = _on_one_lane(consolidate.consolidation_step)
+migrate_one = _on_one_lane(migrate.migrate_one)
 
 
 def _assert_bitwise(a, b):

@@ -144,7 +144,7 @@ def test_live_mask_matches_reference():
 def test_skipped_gates_are_identity():
     """The port runs every policy body where the reference skips it behind
     its trigger: a False trigger must leave the state bit for bit."""
-    from repro_torch.core.loop.state import StageCtx
+    from repro_torch.core.loop.state import StageCtx, add_lane
     from repro_torch.sched import registry
     trace = ttrace.synthetic_trace(8, 4, seed=1)
     trace = trace._replace(arrival=trace.arrival + 100.0)   # nothing queued
@@ -152,9 +152,10 @@ def test_skipped_gates_are_identity():
         spec, params = teng.make_cloud(n_pm=3, n_vm=8, pm_cores=4.0,
                                        pm_sched=pm_sched)
         ttr = trace.to("cpu")
-        st = teng.init_state(spec, ttr, params, device="cpu")
-        ctx = StageCtx(spec=spec, params=params, trace=ttr,
-                       t_stop=torch.tensor(np.inf))
+        # the stages run on a lane axis: one lane here
+        st = add_lane(teng.init_state(spec, ttr, params, device="cpu"))
+        ctx = StageCtx(spec=spec, params=teng.lane_params(params, 1, "cpu"),
+                       trace=add_lane(ttr), t_stop=torch.tensor([np.inf]))
         for layer in ("pm", "vm"):
             code = params.pm_sched if layer == "pm" else params.vm_sched
             assert not bool(registry.trigger_branches(layer, ctx)[code](st))
@@ -171,6 +172,12 @@ def test_segment_sum_where_drops_only_zero_rows():
     data = torch.where(keep[:, None],
                        torch.from_numpy(rng.rand(rows, 2).astype(np.float32)),
                        0.0)
+    # the engine's segment sums take a lane axis: one lane, then the same
+    # rows as three lanes, each of which must equal the one lane's sums
+    ids, keep, data = ids[None], keep[None], data[None]
     full = segment_sum(data, ids, n)
     assert torch.equal(segment_sum(data, ids, n, where=keep), full)
-    assert segment_sum(data, ids, n, where=keep).shape == (n, 2)
+    assert segment_sum(data, ids, n, where=keep).shape == (1, n, 2)
+    three = segment_sum(data.expand(3, -1, -1), ids.expand(3, -1), n,
+                        where=keep.expand(3, -1))
+    assert torch.equal(three, full.expand(3, -1, -1))
