@@ -56,18 +56,34 @@ Phases, each of which raises on failure (nothing is caught):
    likewise: batched_full_width (8 lanes of the full-width cell, net_bw
    x image_mb; lane (125, 100) bit-equal to full_width_dense, lane (500,
    400) to its own single run; one launch of each kernel a pass) and
-   batched_above_gate (2 lanes; lane 0 bit-equal to above_gate); then
-   batched_matrix, the 15 (vm_sched, pm_sched) lanes at 20 PM x 1024 VM,
-   200 tasks, bucket 128: two card runs bit-identical, one CPU run within
-   tolerance, the firstfit lanes bit-equal to their single card runs, a
-   migrating lane that migrates;
+   batched_above_gate (2 lanes; lane 0 bit-equal to above_gate), the
+   lanes of both run as a Pareto sweep (experiments.pareto.sweep, through
+   experiments.shard.run_batch; its rows and frontier recorded); then the
+   streamed cells, counters reset likewise: streaming_full_width (the
+   full_width_dense cloud and trace through engine.simulate_stream in
+   windows of 256 tasks: events, clock, completions, rejections, overflow
+   and every reading bit-equal to full_width_dense; one launch of each
+   kernel a pass; window_t_end recorded) and streaming_batched (the 8
+   lanes of batched_full_width through
+   experiments.shard.simulate_stream_batch, its trace cut to 300 tasks:
+   lane 2 bit-equal to the single stream of that trace in every leaf, one
+   launch of each kernel a pass for all lanes); then batched_matrix, the
+   15 (vm_sched, pm_sched) lanes at 20 PM x 1024 VM, 200 tasks, bucket
+   128, as a scheduler tournament (experiments.tournament.run): two card runs
+   bit-identical, one CPU run within tolerance, the firstfit lanes
+   bit-equal to their single card runs, a migrating lane that migrates;
 5. cross-check: 20 PM x 1024 VM under 200 tasks (bucket 128), under
    alwayson and again under evacuate (which must migrate), each twice on
    the card (the two runs must be bit-identical) and once on the CPU
    (exact integers and event counts, floats within rtol 1e-5 / atol
-   1e-6); then the full-width cell at 150 tasks, compacted and dense, the
-   above-gate cell at 100 tasks and the batched full-width cell at 150
-   under torch.profiler, summarised from the trace's raw events: device idle share, device time of each
+   1e-6); the alwayson cell again streamed in windows of 64 tasks
+   (streaming_cross_check): twice on the card, bit-identical and bit-equal
+   to the monolithic card run, once on the CPU within tolerance, and a
+   gwa_window_stream generator of 200 tasks, card against CPU; then the
+   full-width cell at 150 tasks, compacted and dense, the above-gate cell
+   at 100 tasks, the batched full-width cell at 150 and the streamed
+   full-width cell at 150 (in 8 windows) under torch.profiler, summarised
+   from the trace's raw events: device idle share, device time of each
    hand-written kernel, events/s, kernel launches and host reads per pass
    (the compacted pass may not read the host more often than the dense
    one);
@@ -901,32 +917,41 @@ def profile_phase(n_tasks: int, n_above: int, n_batched: int) -> dict:
     """The full-width cell cut to ``n_tasks``, compacted (bucket 2048) and
     dense (auto on the card), the above-gate cell cut to ``n_above``
     tasks, and the batched full-width cell (8 lanes, dense) cut to
-    ``n_batched`` tasks, under torch.profiler: device busy and idle share,
+    ``n_batched`` tasks, and the streamed full-width cell (in 8 windows)
+    at ``n_tasks``, under torch.profiler: device busy and idle share,
     device time of each hand-written kernel, events/s (of all lanes),
     kernel launches and host reads per pass, the top host-side ops.
     Compaction may read the host no more often a pass than the dense
     run."""
     from repro_torch.core import engine
-    from repro_torch.core.trace import filter_fitting, gwa_like_trace
+    from repro_torch.core.trace import (chunk_trace, filter_fitting,
+                                        gwa_like_trace)
 
     out = {}
-    for name, n_pm, n_vm, tasks, compact, lanes in (
-            ("full_width", 500, 4096, n_tasks, 2048, None),
-            ("full_width_dense", 500, 4096, n_tasks, -1, None),
-            ("above_gate", 1500, 8192, n_above, -1, None),
+    for name, n_pm, n_vm, tasks, compact, lanes, stream in (
+            ("full_width", 500, 4096, n_tasks, 2048, None, False),
+            ("full_width_dense", 500, 4096, n_tasks, -1, None, False),
+            ("above_gate", 1500, 8192, n_above, -1, None, False),
             ("batched_full_width", 500, 4096, n_batched, -1,
-             FULL_WIDTH_SWEEP)):
+             FULL_WIDTH_SWEEP, False),
+            # the streamed cell in 8 windows, as 2000 tasks in windows of
+            # STREAM_WINDOW are
+            ("streaming_full_width", 500, 4096, n_tasks, -1, None, True)):
         trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
         spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
                                          pm_sched="ondemand", compact=compact,
                                          max_events=4_000_000)
-        if lanes is None:
-            (res, _), prof = profiled(lambda: run(spec, trace, params,
-                                                  "cuda"))
-        else:
-            bp = sweep_params(params, lanes)
-            (res, _), prof = profiled(lambda: run_batch(spec, trace, bp,
-                                                        "cuda"))
+        bp = params if lanes is None else sweep_params(params, lanes)
+        wt = chunk_trace(trace, -(-trace.n // 8))
+
+        def go():
+            if not stream:
+                return (run if lanes is None else run_batch)(
+                    spec, trace, bp, "cuda")
+            return timed_call(lambda: engine.simulate_stream(
+                spec, wt, bp, device="cuda"), "cuda")
+
+        (res, _), prof = profiled(go)
         # a pass serves every lane: the busiest lane's events count them
         events = int(res.n_events.sum())
         passes = int(res.n_events.max())
@@ -940,6 +965,8 @@ def profile_phase(n_tasks: int, n_above: int, n_batched: int) -> dict:
             if k not in ("aten_ops", "device_kernels")}}))
     a, b = out["full_width"], out["full_width_dense"]
     assert a["events"] == b["events"], (a["events"], b["events"])
+    assert out["streaming_full_width"]["events"] == b["events"], (
+        out["streaming_full_width"]["events"], b["events"])
     # what compaction adds a pass, by aten op and by device kernel
     for key in ("aten_ops", "device_kernels"):
         extra = {k: (a[key].get(k, 0) - b[key].get(k, 0)) / a["events"]
@@ -955,27 +982,29 @@ def profile_phase(n_tasks: int, n_above: int, n_batched: int) -> dict:
     return out
 
 
-def run(spec, trace, params, device):
-    from repro_torch.core import engine
+def timed_call(fn, device):
+    """``(fn(), wall s)``, the wall ending after the device's queue
+    drained."""
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = engine.simulate(spec, trace, params=params, device=device)
+    out = fn()
     if device == "cuda":
         torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def run(spec, trace, params, device):
+    from repro_torch.core import engine
+    return timed_call(lambda: engine.simulate(spec, trace, params=params,
+                                              device=device), device)
 
 
 def run_batch(spec, trace, params, device):
     """``engine.simulate_batch`` timed as :func:`run` times one scenario."""
     from repro_torch.core import engine
-    if device == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = engine.simulate_batch(spec, trace, params, device=device)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return timed_call(lambda: engine.simulate_batch(spec, trace, params,
+                                                    device=device), device)
 
 
 def sweep_params(params, lanes: dict):
@@ -1029,11 +1058,12 @@ def migrations_done(spec, params, st) -> float:
     return float(nic.double().sum()) / float(params.vm_mem_mb)
 
 
-def main_path(n_tasks: int) -> dict:
+def main_path(n_tasks: int) -> tuple[dict, dict, dict]:
     """The full-width cell compacted (bucket 2048) and dense (the auto rule
     on the card) on one trace, the above-gate cell, and the migrating
     full-width cell, each with the launch counters set to 0 just before
-    and read just after."""
+    and read just after.  Returns the records, each cell's readings and
+    its per-task outputs (bytes)."""
     import warnings
 
     from repro_torch import kernels
@@ -1043,7 +1073,7 @@ def main_path(n_tasks: int) -> dict:
     from repro_torch.core.loop.state import TASK_DONE, TASK_REJECTED
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
-    out, readings = {}, {}
+    out, readings, outputs = {}, {}, {}
     for name, n_pm, n_vm, tasks, pm_sched, compact, bucket in MAIN_CELLS:
         tasks = n_tasks if tasks is None else tasks
         trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
@@ -1074,6 +1104,7 @@ def main_path(n_tasks: int) -> dict:
         counts = torch.stack(lives).cpu().numpy()
         ts = res.state.task_state.cpu().numpy()
         readings[name] = _bits(res.readings(spec))
+        outputs[name] = _outputs(res)
         rd = {k: float(v.sum()) for k, v in res.readings(spec).items()}
         rec = dict(n_pm=n_pm, n_vm=n_vm, tasks=int(trace.n),
                    pm_sched=pm_sched, compact=compact,
@@ -1125,7 +1156,15 @@ def main_path(n_tasks: int) -> dict:
     assert readings["full_width"] == readings["full_width_dense"], (
         "full width: compacted and dense readings differ")
     out["full_width"]["readings_bit_equal_to_dense"] = True
-    return out, readings
+    return out, readings, outputs
+
+
+def _outputs(res) -> dict:
+    """The per-task outputs and end state of a run, as bytes: events,
+    clock, completions, rejections, the pool-overflow flag."""
+    return {k: getattr(res, k).cpu().numpy().tobytes()
+            for k in ("n_events", "t_end", "completion", "rejected",
+                      "overflow")}
 
 
 def _flat(res, spec) -> dict:
@@ -1142,6 +1181,21 @@ def _lane_bits_equal(batch: dict, lane: int, single: dict) -> list:
     (an empty list when every leaf is bit-equal)."""
     return [k for k in single
             if not _bit_equal(batch[k][lane], single[k])]
+
+
+def _assert_close(name: str, got: dict, want: dict):
+    """Integers and event counts exact, floats within rtol 1e-5 / atol
+    1e-6, the Kahan low words not compared (card against CPU)."""
+    assert set(got) == set(want), (name, set(got) ^ set(want))
+    for k in want:
+        if k.endswith(UNCOMPARED):
+            continue
+        if want[k].dtype.kind == "f":
+            np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{name}: {k}")
+        else:
+            assert np.array_equal(got[k].astype(np.int64),
+                                  want[k].astype(np.int64)), (name, k)
 
 
 # name, PMs, VMs, tasks (None: --tasks), PM policy, spec.compact, lanes, and
@@ -1168,6 +1222,7 @@ def batched_path(n_tasks: int, main: dict, main_bits: dict,
     from repro_torch.core import engine
     from repro_torch.core.loop.state import TASK_DONE, TASK_REJECTED
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
+    from repro_torch.experiments import pareto
 
     out = {}
     for (name, n_pm, n_vm, tasks, pm_sched, compact, lanes, same_lane,
@@ -1177,9 +1232,14 @@ def batched_path(n_tasks: int, main: dict, main_bits: dict,
         spec, params = engine.make_cloud(
             n_pm=n_pm, n_vm=n_vm, pm_cores=64.0, pm_sched=pm_sched,
             compact=compact, max_events=4_000_000)
-        bp = sweep_params(params, lanes)
+        # the lanes as a Pareto sweep's points (experiments.pareto), run
+        # through experiments.shard.run_batch on the one device
+        points = [dataclasses.replace(params, **dict(zip(lanes, values)))
+                  for values in zip(*lanes.values())]
         kernels.reset_launch_counts()
-        res, wall = run_batch(spec, trace, bp, device)
+        front, wall = timed_call(lambda: pareto.sweep(
+            spec, trace, points, devices=[device]), device)
+        res = front.result
         launches = dict(kernels.launch_counts(), **kernels.sub_launch_counts())
         flat = _flat(res, spec)
         events = flat["n_events"].astype(int).tolist()
@@ -1194,8 +1254,13 @@ def batched_path(n_tasks: int, main: dict, main_bits: dict,
                    single_cell=same_cell,
                    single_events_per_s=ref["events_per_s"],
                    launches=launches, completed=done, rejected=rejected,
-                   overflow=flat["overflow"].tolist())
+                   overflow=flat["overflow"].tolist(),
+                   pareto_rows=front.rows,
+                   pareto_frontier=front.frontier.tolist())
         print(json.dumps({name: rec}))
+        assert front.frontier.size > 0 and all(
+            r["tasks_done"] == d for r, d in zip(front.rows, done)), (
+            name, front.rows)
         assert all(d + r == trace.n for d, r in zip(done, rejected)), (
             f"{name}: unfinished tasks")
         assert not any(rec["overflow"]), f"{name}: VM slot pool overflowed"
@@ -1236,7 +1301,8 @@ MATRIX_TASKS = 200
 
 def batched_matrix(n_tasks: int = MATRIX_TASKS, device: str = "cuda",
                    n_pm: int = 20, n_vm: int = 1024) -> dict:
-    """The scheduler tournament at the cross-check's size: 20 PM x 1024 VM,
+    """The scheduler tournament (experiments.tournament.run) at the
+    cross-check's size: 20 PM x 1024 VM,
     the cross-check's trace, bucket 128 (given explicitly, so that each
     lane compacts on the card), 15 lanes, one for each (vm_sched,
     pm_sched) pair.  Twice on the card, bit-identical; once batched on the
@@ -1246,6 +1312,7 @@ def batched_matrix(n_tasks: int = MATRIX_TASKS, device: str = "cuda",
     import warnings
 
     from repro_torch.core import engine
+    from repro_torch.experiments import tournament
     from repro_torch.sched import registry
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
 
@@ -1254,28 +1321,26 @@ def batched_matrix(n_tasks: int = MATRIX_TASKS, device: str = "cuda",
                                      compact=128, max_events=4_000_000)
     pairs = [(v, p) for v in range(len(registry.names("vm")))
              for p in range(len(registry.names("pm")))]
-    bp = sweep_params(params, {"vm_sched": [v for v, _ in pairs],
-                               "pm_sched": [p for _, p in pairs]})
+
+    def run_tournament(dev):
+        """The lanes as experiments.tournament.run scores them, through
+        experiments.shard.run_batch on the one device."""
+        return timed_call(lambda: tournament.run(
+            spec, trace, params, schedulers=pairs, devices=[dev]), dev)
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        a, wall_a = run_batch(spec, trace, bp, device)
-        b, wall_b = run_batch(spec, trace, bp, device)
+        ta, wall_a = run_tournament(device)
+        tb, wall_b = run_tournament(device)
     assert not caught, ("batched_matrix: a compaction bucket overflowed",
                         [str(w.message) for w in caught])
-    c, wall_c = run_batch(spec, trace, bp, "cpu")
-    fa, fb, fc = (_flat(x, spec) for x in (a, b, c))
+    tc, wall_c = run_tournament("cpu")
+    assert ta.rows == tb.rows, "batched_matrix: two card runs' rows differ"
+    fa, fb, fc = (_flat(x.result, spec) for x in (ta, tb, tc))
     for k in fa:
         assert fa[k].tobytes() == fb[k].tobytes(), (
             f"batched_matrix: two card runs differ in {k}")
-        if k.endswith(UNCOMPARED):
-            continue
-        if fa[k].dtype.kind == "f":
-            np.testing.assert_allclose(fa[k], fc[k], rtol=RTOL, atol=ATOL,
-                                       err_msg=f"batched_matrix card vs cpu")
-        else:
-            assert np.array_equal(fa[k].astype(np.int64),
-                                  fc[k].astype(np.int64)), (
-                f"batched_matrix card vs cpu: {k}")
+    _assert_close("batched_matrix card vs cpu", fa, fc)
     singles = {}
     for i, (v, p) in enumerate(pairs):
         if v != 0:
@@ -1295,18 +1360,23 @@ def batched_matrix(n_tasks: int = MATRIX_TASKS, device: str = "cuda",
         aggregate_events_per_s=float(fa["n_events"].sum()) / wall_a,
         firstfit_single_wall_s=singles, migrated=migrated,
         leaves_bit_equal_card_cpu=sum(fa[k].tobytes() == fc[k].tobytes()
-                                      for k in fa), leaves=len(fa))
+                                      for k in fa), leaves=len(fa),
+        tournament_rows=ta.rows)
     print(json.dumps({"batched_matrix": rec}))
+    for row, events, (v, p) in zip(ta.rows, rec["lane_events"], pairs):
+        assert (row["vm_sched"], row["pm_sched"], row["events"]) == (
+            registry.names("vm")[v], registry.names("pm")[p], events), row
     assert any(migrated[i] for i, (_, p) in enumerate(pairs) if p >= 2), (
         "batched_matrix: no migrating lane migrated")
     return rec
 
 
-def cross_check(pm_sched: str = "alwayson") -> dict:
+def cross_check(pm_sched: str = "alwayson") -> tuple[dict, dict]:
     """20 PM x 1024 VM under 200 tasks, compacted (bucket 128, the
     reference's auto bucket, given explicitly since auto runs dense on the
     card), twice on the card, bit-identical, and once on the CPU: integers
-    and event counts exact, floats within rtol 1e-5 / atol 1e-6."""
+    and event counts exact, floats within rtol 1e-5 / atol 1e-6.  Returns
+    the record and the card run's leaves."""
     from repro_torch.core import engine
     from repro_torch.core.loop import compact as cpk
     from repro_torch.core.trace import filter_fitting, gwa_like_trace
@@ -1323,16 +1393,7 @@ def cross_check(pm_sched: str = "alwayson") -> dict:
     for k in fa:
         assert fa[k].tobytes() == fb[k].tobytes(), (
             f"two card runs differ in {k}")
-    for k in fa:
-        if k.endswith(UNCOMPARED):
-            continue
-        if fa[k].dtype.kind == "f":
-            np.testing.assert_allclose(fa[k], fc[k], rtol=RTOL, atol=ATOL,
-                                       err_msg=f"card vs cpu: {k}")
-        else:
-            assert np.array_equal(fa[k].astype(np.int64),
-                                  fc[k].astype(np.int64)), (
-                f"card vs cpu: {k}")
+    _assert_close("card vs cpu", fa, fc)
     bit_equal = sum(fa[k].tobytes() == fc[k].tobytes() for k in fa)
     name = "cross_check_20x1024" + ("" if pm_sched == "alwayson"
                                     else f"_{pm_sched}")
@@ -1345,6 +1406,211 @@ def cross_check(pm_sched: str = "alwayson") -> dict:
     print(json.dumps({name: rec}))
     if pm_sched in ("consolidate", "defrag", "evacuate"):
         assert rec["migrated"], f"{name}: no migration"
+    return rec, fa
+
+
+def _stream_vs_mono(stream: dict, mono: dict) -> list:
+    """The leaves of a monolithic run (but the per-task state, whose axis
+    is the slot pool in a stream) where a stream's bits differ."""
+    return [k for k in mono
+            if not k.startswith(("state.task_", "state.t_done",
+                                 "state.vm_task"))
+            and stream[k].tobytes() != mono[k].tobytes()]
+
+
+# Windows of the streamed cells: 2000 tasks in 8 windows at full width
+# (the default pool of 4096 + 256 slots), 200 in 4 in the cross-check.
+STREAM_WINDOW = 256
+CROSS_STREAM_WINDOW = 64
+# streaming_batched's depth, cut from --tasks to keep the script inside its
+# time limit (2000 tasks took 87 s of the first full run's 1090)
+STREAM_BATCHED_TASKS = 300
+
+
+def streaming_path(n_tasks: int, main: dict, main_bits: dict,
+                   main_outputs: dict, device: str = "cuda") -> dict:
+    """streaming_full_width: the full_width_dense cell of MAIN_CELLS (its
+    cloud, trace and spec) through ``engine.simulate_stream`` on
+    ``chunk_trace(trace, STREAM_WINDOW)``, which must equal the monolithic
+    run bit for bit (events, clock, completions, rejections, overflow,
+    every reading).  streaming_batched: the batched_full_width lanes of
+    BATCHED_CELLS through ``experiments.shard.simulate_stream_batch`` on
+    the same cloud, its trace cut to STREAM_BATCHED_TASKS tasks; the lane
+    of the main-path cell must equal the single stream of that trace in
+    every leaf (streaming_full_width itself when not cut), and each
+    main-path kernel launch a pass serves every lane.  The launch counters are set to 0 just
+    before each run and read just after."""
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.core.loop.state import TASK_DONE, TASK_REJECTED
+    from repro_torch.core.trace import (chunk_trace, filter_fitting,
+                                        gwa_like_trace)
+    from repro_torch.experiments import shard
+
+    def timed_run(fn):
+        kernels.reset_launch_counts()
+        res, wall = timed_call(fn, device)
+        return res, wall, dict(kernels.launch_counts(),
+                               **kernels.sub_launch_counts())
+
+    def per_pass(launches, passes):
+        return {k: v / passes for k, v in launches.items()}
+
+    _, n_pm, n_vm, tasks, pm_sched, compact, _ = {
+        c[0]: c for c in MAIN_CELLS}["full_width_dense"]
+    tasks = n_tasks if tasks is None else tasks
+    trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
+    spec, params = engine.make_cloud(
+        n_pm=n_pm, n_vm=n_vm, pm_cores=64.0, pm_sched=pm_sched,
+        compact=compact, max_events=4_000_000)
+    wt = chunk_trace(trace, STREAM_WINDOW)
+    res, wall, launches = timed_run(lambda: engine.simulate_stream(
+        spec, wt, params, device=device))
+    single = _flat(res, spec)
+    events = int(res.n_events)
+    ts = res.completion.cpu().numpy()
+    out = {}
+    rec = dict(n_pm=n_pm, n_vm=n_vm, tasks=int(trace.n),
+               window=STREAM_WINDOW, windows=wt.n_windows,
+               slots=engine.default_n_slots(spec, STREAM_WINDOW),
+               events=events, wall_s=wall, events_per_s=events / wall,
+               single_cell="full_width_dense",
+               single_events_per_s=main["full_width_dense"]["events_per_s"],
+               launches=launches, launches_per_pass=per_pass(launches,
+                                                             events),
+               completed=int(np.isfinite(ts).sum()),
+               rejected=int(res.rejected.sum()),
+               overflow=bool(res.overflow),
+               window_t_end=res.window_t_end.cpu().tolist())
+    print(json.dumps({"streaming_full_width": rec}))
+    want = main_outputs["full_width_dense"]
+    got = _outputs(res)
+    assert got == want, ("streaming_full_width differs from "
+                         "full_width_dense in",
+                         [k for k in want if got[k] != want[k]])
+    assert _bits(res.readings(spec)) == main_bits["full_width_dense"], (
+        "streaming_full_width: readings differ from full_width_dense")
+    assert rec["completed"] + rec["rejected"] == rec["tasks"]
+    if device == "cuda":
+        assert launches["masked_min"] == events, launches
+        assert launches["maxmin_solve"] == events, launches
+        assert launches["fill_plan"] == 0, launches
+    rec["bit_equal_to_full_width_dense"] = True
+    out["streaming_full_width"] = rec
+
+    (_, _, _, _, _, _, lanes, same_lane, _) = {
+        c[0]: c for c in BATCHED_CELLS}["batched_full_width"]
+    bp = sweep_params(params, lanes)
+    if tasks > STREAM_BATCHED_TASKS:
+        # the cut depth: lane 2 is held against the single stream of the
+        # same cut trace
+        trace = filter_fitting(gwa_like_trace("das2", STREAM_BATCHED_TASKS,
+                                              seed=7), 64.0)
+        wt = chunk_trace(trace, STREAM_WINDOW)
+        single, single_wall = timed_call(lambda: _flat(engine.simulate_stream(
+            spec, wt, params, device=device), spec), device)
+        out["streaming_full_width"]["cut_single_wall_s"] = single_wall
+    res, wall, launches = timed_run(lambda: shard.simulate_stream_batch(
+        spec, wt, bp, devices=[device]))
+    flat = _flat(res, spec)
+    lane_events = flat["n_events"].astype(int).tolist()
+    passes = launches["masked_min"] if device == "cuda" else max(lane_events)
+    st = flat["state.task_state"]
+    rec = dict(tasks=int(trace.n), lanes=lanes, window=STREAM_WINDOW,
+               lane_events=lane_events, passes=passes, wall_s=wall,
+               aggregate_events_per_s=sum(lane_events) / wall,
+               batched_cell="batched_full_width",
+               batched_aggregate_events_per_s=main["batched_full_width"][
+                   "aggregate_events_per_s"],
+               launches=launches, launches_per_pass=per_pass(launches,
+                                                             passes),
+               completed=np.isfinite(flat["completion"]).sum(-1).tolist(),
+               rejected=flat["rejected"].sum(-1).tolist(),
+               overflow=flat["overflow"].tolist(),
+               live_tasks_at_end=int(((st != TASK_DONE)
+                                      & (st != TASK_REJECTED)).sum()))
+    print(json.dumps({"streaming_batched": rec}))
+    assert not any(rec["overflow"]), "streaming_batched: pool overflowed"
+    assert all(d + r == trace.n for d, r in zip(rec["completed"],
+                                                rec["rejected"]))
+    bad = _lane_bits_equal(flat, same_lane, single)
+    assert not bad, (f"streaming_batched: lane {same_lane} differs from "
+                     f"its single stream in {bad[:5]}")
+    if device == "cuda":
+        # one launch a pass serves every lane.  A window's loop runs while
+        # any lane has not reached the hand-over, so the passes are the
+        # sum over the windows of the busiest lane's events there: at
+        # least the busiest lane's total, far below the lanes' sum.
+        assert max(lane_events) <= passes < 2 * max(lane_events), (
+            passes, lane_events)
+        assert launches["maxmin_solve"] == passes, launches
+    rec[f"lane_{same_lane}_bit_equal_to_single_stream"] = True
+    out["streaming_batched"] = rec
+    return out
+
+
+def streaming_cross_check(mono: dict, device: str = "cuda",
+                          n_pm: int = 20, n_vm: int = 1024) -> dict:
+    """The cross-check cell (20 PM x 1024 VM, 200 tasks, alwayson, bucket
+    128) through ``engine.simulate_stream`` at W = CROSS_STREAM_WINDOW:
+    twice on the card, bit-identical, and bit-equal to the cell's
+    monolithic card run ``mono`` (every leaf but the per-task state);
+    once on the CPU (integers exact, floats within rtol 1e-5 / atol
+    1e-6).  Then a ``gwa_window_stream`` generator of 200 das2 tasks in
+    windows of CROSS_STREAM_WINDOW, card against CPU likewise."""
+    import warnings
+
+    from repro_torch.core import engine
+    from repro_torch.core.trace import (chunk_trace, filter_fitting,
+                                        gwa_like_trace)
+    from repro_torch.data.pipeline import gwa_window_stream
+
+    trace = filter_fitting(gwa_like_trace("das2", 200, seed=7), 64.0)
+    spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
+                                     pm_sched="alwayson", compact=128,
+                                     max_events=4_000_000)
+    wt = chunk_trace(trace, CROSS_STREAM_WINDOW)
+
+    def go(windows, dev):
+        res, wall = timed_call(lambda: engine.simulate_stream(
+            spec, windows, params, device=dev), dev)
+        return _flat(res, spec), wall
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fa, wall_a = go(wt, device)
+        fb, wall_b = go(wt, device)
+    assert not caught, ("streaming_cross_check: a bucket overflowed",
+                        [str(w.message) for w in caught])
+    fc, wall_c = go(wt, "cpu")
+    for k in fa:
+        assert fa[k].tobytes() == fb[k].tobytes(), (
+            f"streaming_cross_check: two card runs differ in {k}")
+    bad = _stream_vs_mono(fa, mono)
+    assert not bad, ("streaming_cross_check: differs from the monolithic "
+                     "card run in", bad[:5])
+    _assert_close("streaming_cross_check card vs cpu", fa, fc)
+
+    def gen():
+        return gwa_window_stream("das2", 200, CROSS_STREAM_WINDOW,
+                                 max_cores=64, seed=7)
+
+    ga, wall_ga = go(gen(), device)
+    gc, wall_gc = go(gen(), "cpu")
+    _assert_close("streaming_cross_check generator card vs cpu", ga, gc)
+    rec = dict(tasks=int(trace.n), window=CROSS_STREAM_WINDOW,
+               windows=wt.n_windows, events=int(fa["n_events"]),
+               card_wall_s=[wall_a, wall_b], cpu_wall_s=wall_c,
+               leaves=len(fa),
+               leaves_bit_equal_card_cpu=sum(
+                   fa[k].tobytes() == fc[k].tobytes() for k in fa),
+               bit_equal_to_monolithic_card_run=True,
+               generator=dict(tasks=200, events=int(ga["n_events"]),
+                              card_wall_s=wall_ga, cpu_wall_s=wall_gc,
+                              leaves_bit_equal_card_cpu=sum(
+                                  ga[k].tobytes() == gc[k].tobytes()
+                                  for k in ga)))
+    print(json.dumps({"streaming_cross_check": rec}))
     return rec
 
 
@@ -1882,14 +2148,19 @@ def main() -> int:
     checks.update(lm_checks)
     record["kernel_checks"] = checks
     print(json.dumps({"kernel_checks": checks}))
-    main, main_bits = timed("main_path", main_path, args.tasks)
+    main, main_bits, main_outputs = timed("main_path", main_path,
+                                          args.tasks)
     record["main_path"] = main
     main.update(timed("batched_path", batched_path, args.tasks, main,
                       main_bits))
+    main.update(timed("streaming_path", streaming_path, args.tasks, main,
+                      main_bits, main_outputs))
     record["batched_matrix"] = timed("batched_matrix", batched_matrix)
-    record["cross_check"] = timed("cross_check", cross_check)
-    record["cross_check_evacuate"] = timed("cross_check_evacuate",
-                                           cross_check, "evacuate")
+    record["cross_check"], cross_mono = timed("cross_check", cross_check)
+    record["cross_check_evacuate"], _ = timed("cross_check_evacuate",
+                                              cross_check, "evacuate")
+    record["streaming_cross_check"] = timed(
+        "streaming_cross_check", streaming_cross_check, cross_mono)
     # the capture's depth, so the busiest captured pass lies in the
     # profiled window; above the gate the main path's 100
     record["profile"] = timed("profile", profile_phase, CAPTURE_TASKS, 100,
@@ -1937,6 +2208,10 @@ def main() -> int:
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=k.get("library_ms"),
             shape=k["shape"], main_path_cell=cell,
+            streamed_launches={
+                c: record["main_path"][c]["launches"][counter]
+                for c in ("streaming_full_width", "streaming_batched")
+                if counter in ("maxmin_solve", "masked_min")},
             **{x: k[x] for x in ("variant", "plan_ms", "public_ms",
                                  "graph_ms", "plan_graph_ms",
                                  "longest_segment", "device_ms", "host_us",

@@ -99,6 +99,22 @@ def instantaneous_power(table: PowerStateTable, state: torch.Tensor,
     return torch.where(mode == MODEL_LINEAR, linear, p_min)
 
 
+def spreader_utilisation(rates: torch.Tensor, live: torch.Tensor,
+                         provider: torch.Tensor,
+                         perf: torch.Tensor) -> torch.Tensor:
+    """f32[S] delivered / capacity per spreader (the utilisation counter's
+    instantaneous derivative) from the flows' f32[C] rates, bool[C] live
+    mask and i32[C] providers; lanes [B, C] / [B, S] give [B, S]."""
+    one = perf.dim() == 1
+    if one:
+        rates, live, provider, perf = (x[None] for x in
+                                       (rates, live, provider, perf))
+    delivered = segment_sum(torch.where(live, rates, 0.0), provider,
+                            perf.shape[-1])
+    out = delivered / torch.clamp_min(perf, 1e-30)
+    return out[0] if one else out
+
+
 def vm_power_attribution(pm_power, pm_idle, pm_span, pm_util, vm_rate_frac,
                          vm_host, vms_on_host) -> torch.Tensor:
     """Adjusted-aggregation VM power (paper Eq. 6), per lane: the per-VM
@@ -134,6 +150,27 @@ class MeterAccum(NamedTuple):
     @property
     def energy(self) -> torch.Tensor:
         return self.energy_hi
+
+
+class IndirectMeter(NamedTuple):
+    """Indirect energy estimation (paper §3.3.1): power derived from a
+    system property no spreader represents, ``P = base + coeff * signal``
+    (e.g. total IT power for a PUE-style HVAC meter)."""
+
+    base_w: torch.Tensor
+    coeff: torch.Tensor
+
+    def power(self, signal: torch.Tensor) -> torch.Tensor:
+        return self.base_w + self.coeff * signal
+
+
+def hvac_meter(pue_minus_one: float = 0.58,
+               base_w: float = 0.0) -> IndirectMeter:
+    """Data-centre HVAC as an indirect meter: cooling draw proportional to
+    IT draw (PUE-style; default PUE 1.58)."""
+    return IndirectMeter(base_w=torch.tensor(base_w, dtype=torch.float32),
+                         coeff=torch.tensor(pue_minus_one,
+                                            dtype=torch.float32))
 
 
 # Signals an indirect meter may be driven by (paper §3.3.1).

@@ -43,12 +43,15 @@ from . import machine as mc
 from .energy import (PM_OFF, PM_RUNNING, MeterAccum, MeterParams, MeterState,
                      MeterTopology, PowerStateTable, meter_readings)
 from .fairshare import SCHEDULERS
-from .loop.state import (BIG as _BIG, TASK_PENDING, TASK_REJECTED, CloudState,
-                         add_lane, drop_lane)
+from .arrays import lane_sum, scatter_drop
+from .loop.state import (BIG as _BIG, TASK_DONE, TASK_PENDING, TASK_REJECTED,
+                         CloudState, add_lane, drop_lane, select_lanes)
 
 __all__ = ["CloudSpec", "CloudParams", "CloudState", "CloudResult", "Trace",
            "LaneParams", "make_cloud", "stack_params", "stack_traces",
            "lane_params", "init_state", "simulate", "simulate_batch",
+           "simulate_batch_sharded", "StreamCarry", "StreamResult",
+           "default_n_slots", "init_stream", "simulate_stream",
            "dense_spec", "start_migration", "make_allocation",
            "params_from_numpy", "trace_from_numpy", "state_from_numpy",
            "to_numpy"]
@@ -216,11 +219,17 @@ def stack_params(params) -> CloudParams:
 class Trace(NamedTuple):
     """Task trace: one VM request per task (paper §4.2.2 protocol).  The
     generators in :mod:`repro_torch.core.trace` fill it with numpy arrays;
-    :meth:`to` gives the device tensors the engine runs on."""
+    :meth:`to` gives the device tensors the engine runs on.
+
+    ``gid`` is the streaming engine's global task id: ``None`` for a
+    monolithic trace (the task axis is the id), an i32[T] for a window or
+    a slot table, where recycled slots hold any ids and ``-1`` marks a
+    free or padded slot."""
 
     arrival: object  # f32[T] submission times
     cores: object    # f32[T]
     work: object     # f32[T] total processing units
+    gid: object = None  # i32[T] global ids (streaming); -1 free / pad
 
     @property
     def n(self) -> int:
@@ -228,14 +237,20 @@ class Trace(NamedTuple):
         return self.arrival.shape[-1]
 
     def to(self, device) -> "Trace":
-        return Trace(*(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                                       else x, dtype=torch.float32)
-                       .to(device) for x in self))
+        """Every field as a tensor on ``device`` (f32, ``gid`` int32; a
+        missing ``gid`` stays ``None``)."""
+        return Trace(*(None if x is None
+                       else _as_tensor(x, _TRACE_DTYPES[k]).to(device)
+                       for k, x in zip(Trace._fields, self)))
+
+
+_TRACE_DTYPES = {"arrival": torch.float32, "cores": torch.float32,
+                 "work": torch.float32, "gid": torch.int32}
 
 
 def stack_traces(traces) -> Trace:
     """Stack equal-length traces along a new leading batch axis (input to
-    :func:`simulate_batch`); f32 [B, T] CPU tensors."""
+    :func:`simulate_batch`); [B, T] CPU tensors (f32, ``gid`` int32)."""
     traces = list(traces)
     if not traces:
         raise ValueError("stack_traces needs at least one trace")
@@ -243,8 +258,16 @@ def stack_traces(traces) -> Trace:
     if len(set(lengths)) > 1:
         raise ValueError(
             f"stack_traces needs equal-length traces (one task axis for the "
-            f"batch), got lengths {lengths}; pad the traces to one length")
-    return Trace(*(torch.stack([_as_tensor(getattr(t, k), torch.float32)
+            f"batch), got lengths {lengths}; pad the traces to one length, "
+            f"or chunk them with repro_torch.core.trace.chunk_trace and "
+            f"replay them through simulate_stream")
+    with_gid = [t.gid is not None for t in traces]
+    if any(with_gid) and not all(with_gid):
+        raise ValueError(
+            "stack_traces cannot mix gid-carrying (streaming) and "
+            "monolithic traces: set gid on all windows or on none")
+    return Trace(*(None if not with_gid[0] and k == "gid" else
+                   torch.stack([_as_tensor(getattr(t, k), _TRACE_DTYPES[k])
                                 .cpu() for t in traces])
                    for k in Trace._fields))
 
@@ -314,7 +337,7 @@ def _batch_size(trace: Trace, params: CloudParams) -> int:
     sizes = {}
     for k in Trace._fields:
         x = getattr(trace, k)
-        if _ndim(x) > 1:
+        if x is not None and _ndim(x) > 1:
             sizes[f"trace.{k}"] = int(x.shape[0])
     for name, value, dims, _ in _leaves(params):
         if _ndim(value) > dims:
@@ -331,11 +354,11 @@ def _batch_size(trace: Trace, params: CloudParams) -> int:
 
 
 def _trace_lanes(trace: Trace, n_lanes: int, device) -> Trace:
-    """Every field of ``trace`` as f32 [B, T] on ``device`` (an unbatched
+    """Every field of ``trace`` as [B, T] on ``device`` (an unbatched
     field broadcast to every lane, as a view)."""
     trace = trace.to(device)
-    return Trace(*(x if x.dim() == 2 else x.expand(n_lanes, x.shape[-1])
-                   for x in trace))
+    return Trace(*(x if x is None or x.dim() == 2
+                   else x.expand(n_lanes, x.shape[-1]) for x in trace))
 
 
 class CloudResult(NamedTuple):
@@ -440,19 +463,14 @@ def _warn_dense_rerun(spec: CloudSpec, dev):
         RuntimeWarning, stacklevel=3)
 
 
-def _simulate_impl(spec, trace, params, state, t_stop, dev):
-    """The staged pipeline run from the host over every lane of ``params``
-    (a :class:`LaneParams`; ``trace`` [B, T] on ``dev``); returns
-    ``(result, ok)``, ``ok`` the compaction verdict over every pass and
-    lane (None when compaction is off).  The passes fold the verdict on
-    the device; the host reads it in the same read as the lanes' loop
-    condition, once per body, and stops at the first body whose bucket
-    overflowed in any lane, since the batch is replayed dense anyway."""
-    B = params.pm_cores.shape[0]
-    st = _init_lanes(spec, trace.n, params, dev) if state is None else state
-    st = loop.management_pass(spec, params, trace, st)
-    t_stop = torch.full((B,), t_stop, dtype=torch.float32, device=dev)
-    body = loop.make_body(spec, params, trace, t_stop)
+def _host_loop(spec, body, st: CloudState):
+    """Run ``body`` from the host until no lane goes on; returns ``(st,
+    ok)``, ``ok`` the compaction verdict of its passes (None when
+    compaction is off or no pass ran, else a host bool).  The passes fold
+    the verdict on the device; the host reads it in the same read as the
+    lanes' loop condition, once per body, and stops at the first body
+    whose bucket overflowed in any lane."""
+    B = st.t.shape[0]
     ok = None        # the device verdict of the passes so far, a lane each
     while True:
         go = loop.lanes_going(spec, st)
@@ -465,10 +483,23 @@ def _simulate_impl(spec, trace, params, state, t_stop, dev):
         if n_go <= 0:
             if ok is not None:
                 ok = n_go == 0
-            break
+            return st, ok
         st, ok_body = body(st, None if n_go == B else go)
         if ok_body is not None:
             ok = ok_body if ok is None else ok & ok_body
+
+
+def _simulate_impl(spec, trace, params, state, t_stop, dev):
+    """The staged pipeline run from the host over every lane of ``params``
+    (a :class:`LaneParams`; ``trace`` [B, T] on ``dev``); returns
+    ``(result, ok)``, ``ok`` the compaction verdict of :func:`_host_loop`
+    (a bucket that overflowed in any lane stops the loop, since the batch
+    is replayed dense anyway)."""
+    B = params.pm_cores.shape[0]
+    st = _init_lanes(spec, trace.n, params, dev) if state is None else state
+    st = loop.management_pass(spec, params, trace, st)
+    t_stop = torch.full((B,), t_stop, dtype=torch.float32, device=dev)
+    st, ok = _host_loop(spec, loop.make_body(spec, params, trace, t_stop), st)
     return CloudResult(
         state=st,
         completion=st.t_done,
@@ -538,6 +569,375 @@ def simulate_batch(spec: CloudSpec, trace: Trace, params: CloudParams,
     _check_meter_params(spec, params)
     return _run_lanes(spec, _trace_lanes(trace, B, dev),
                       lane_params(params, B, dev), None, t_stop, dev)
+
+
+def simulate_batch_sharded(spec: CloudSpec, trace: Trace,
+                           params: CloudParams, t_stop: float = math.inf,
+                           devices=None) -> CloudResult:
+    """:func:`simulate_batch` with the lanes split over ``devices`` (a
+    list of torch devices; ``None``: every visible card).  Each lane is
+    bit-equal to the unsplit call.  Implemented in
+    :mod:`repro_torch.experiments.shard` (imported here lazily: the engine
+    does not depend on the experiments layer)."""
+    from ..experiments.shard import simulate_batch_sharded as impl
+    return impl(spec, trace, params, t_stop, devices)
+
+
+# ---------------------------------------------------------------------------
+# Streaming trace windows
+# ---------------------------------------------------------------------------
+
+class StreamCarry(NamedTuple):
+    """The per-window carry of :func:`simulate_stream`.
+
+    ``state`` is the ordinary :class:`CloudState` whose task axis is the
+    fixed slot pool (``Q`` slots, never the total trace length); ``slots``
+    is the slot-table :class:`Trace` those task indices resolve against.
+    A free slot has ``gid == -1``, ``arrival == inf`` and ``task_state ==
+    TASK_DONE``, which makes it inert in every queue, horizon and
+    termination mask.  ``compact_ok`` is the compaction verdict of the
+    windows so far (a host bool: the host loop reads it with the loop
+    condition)."""
+
+    state: CloudState
+    slots: Trace
+    compact_ok: bool
+
+
+class StreamResult(NamedTuple):
+    """:class:`CloudResult`-shaped result of a windowed replay: the
+    per-task outputs on the global task axis (``T_total``), meters and
+    state the final carried values, plus per-window progress curves.
+    Every leaf of a batch leads with the lane axis."""
+
+    state: CloudState
+    completion: torch.Tensor   # f32[T_total] completion times (inf: unfinished)
+    rejected: torch.Tensor     # bool[T_total]
+    energy: torch.Tensor       # f32[P] (view of meters.pm)
+    energy_sampled: torch.Tensor  # f32[P]
+    meters: MeterState
+    n_events: torch.Tensor
+    t_end: torch.Tensor
+    overflow: torch.Tensor
+    window_t_end: torch.Tensor   # f32[n_windows] clock after each window
+    window_energy: torch.Tensor  # f32[n_windows] total PM energy after each
+
+    def readings(self, spec: CloudSpec) -> dict[str, torch.Tensor]:
+        """Named energy readings of the stack, as
+        :meth:`CloudResult.readings`."""
+        return meter_readings(spec.meters, self.meters)
+
+
+def default_n_slots(spec: CloudSpec, window: int) -> int:
+    """Default slot-pool size: room for a full window of fresh arrivals on
+    top of every VM the cloud can run at once (plus queue slack).
+    Exhaustion is reported (``overflow``), never silent."""
+    return max(2 * window, spec.n_vm + window)
+
+
+def _init_stream_lanes(spec: CloudSpec, n_slots: int, params: LaneParams,
+                       dev) -> StreamCarry:
+    B, Q = params.pm_cores.shape[0], int(n_slots)
+    slots = Trace(
+        arrival=torch.full((B, Q), math.inf, dtype=torch.float32, device=dev),
+        cores=torch.zeros((B, Q), dtype=torch.float32, device=dev),
+        work=torch.zeros((B, Q), dtype=torch.float32, device=dev),
+        gid=torch.full((B, Q), -1, dtype=torch.int32, device=dev))
+    st = _init_lanes(spec, Q, params, dev)
+    st = st._replace(task_state=torch.full((B, Q), TASK_DONE,
+                                           dtype=torch.int8, device=dev))
+    return StreamCarry(state=st, slots=slots, compact_ok=True)
+
+
+def init_stream(spec: CloudSpec, n_slots: int,
+                params: CloudParams | None = None, *,
+                device=None) -> StreamCarry:
+    """The streaming engine's initial carry of one scenario: an empty slot
+    table and an :func:`init_state` whose every task slot is free (inert
+    ``TASK_DONE``, ``arrival == inf``).  ``device`` as in
+    :func:`simulate`."""
+    dev = resolve_device(device)
+    if params is None:
+        params = CloudParams.for_spec(spec)
+    _check_meter_params(spec, params)
+    return drop_lane(_init_stream_lanes(spec, n_slots,
+                                        lane_params(params, 1, dev), dev))
+
+
+def _reached(t: torch.Tensor, mark: float) -> torch.Tensor:
+    """bool[B]: ``isfinite(mark) & (t >= mark)`` for a host ``mark``."""
+    if math.isfinite(mark):
+        return t >= mark
+    return torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+
+
+def _stream_step(spec: CloudSpec, carry: StreamCarry, window: Trace,
+                 params: LaneParams, t_prev_next: float, t_next: float,
+                 t_stop: torch.Tensor):
+    """One window of the streaming engine, every lane of ``carry`` at once
+    (``window``: one [W] gid-carrying :class:`Trace` on the carry's
+    device, shared by the lanes; ``t_prev_next`` / ``t_next`` host
+    floats).  Returns ``(carry, flush)``.
+
+    1. *Insert*: the window's valid tasks (``gid >= 0``) scatter into the
+       free slots of each lane in rank order (the i-th incoming task into
+       the i-th free slot); an exhausted pool raises ``overflow`` and
+       drops nothing silently.
+    2. *Replay*: the previous window's loop ended on the hand-over pass,
+       whose management stages were discarded (the monolithic engine ran
+       them with the next arrival already queued); they run again now
+       that the arrivals are present.  ``t_prev_next`` tells whether the
+       previous loop ended on a hand-over (``t >= t_prev_next``) or on
+       ``t_stop`` (no discarded pass, no replay).  A same-instant cohort
+       split across the window boundary (``t >= t_next``) defers the
+       pass, and the whole loop, again.  The choice is a select per lane,
+       not a host read.
+    3. *Loop*: the ordinary staged pipeline with the ``t_next`` sentinel
+       in the horizon and the termination masks; it runs exactly the
+       monolithic pass sequence up to the next hand-over.
+    4. *Flush*: terminal slots emit ``(gid, t_done, rejected)`` and are
+       freed for the next window.
+    """
+    st, slots = carry.state, carry.slots
+    B, Q = slots.gid.shape
+    dev = slots.gid.device
+
+    # ---- 1. insert: rank-matched scatter of valid tasks into free slots
+    free = slots.gid < 0
+    free_rank = torch.cumsum(free, -1) - 1              # each free slot's rank
+    slot_of_rank = scatter_drop(
+        torch.full((B, Q), Q, dtype=torch.int64, device=dev),
+        torch.where(free, free_rank, Q),
+        torch.arange(Q, device=dev).expand(B, Q))
+    valid = (window.gid >= 0).expand(B, window.n)
+    pos = torch.cumsum(valid, -1) - 1                   # each task's rank
+    take = valid & (pos < free.sum(-1, keepdim=True))
+    dest = torch.where(take, slot_of_rank.gather(1, pos.clamp(0, Q - 1)), Q)
+    slots = Trace(*(scatter_drop(old, dest, new)
+                    for old, new in zip(slots, window)))
+    st = st._replace(
+        task_state=scatter_drop(st.task_state, dest, TASK_PENDING),
+        task_vm=scatter_drop(st.task_vm, dest, -1),
+        t_done=scatter_drop(st.t_done, dest, math.inf),
+        overflow=st.overflow | (valid & ~take).any(-1))
+
+    # ---- 2. gated management replay
+    do_mp = _reached(st.t, t_prev_next) & ~_reached(st.t, t_next)
+    stopped = torch.isfinite(t_stop) & (st.t >= t_stop)
+    st = select_lanes(do_mp, loop.management_pass(spec, params, slots, st),
+                      st)
+    st = st._replace(running=do_mp & ~stopped)
+
+    # ---- 3. the staged loop up to the next hand-over
+    st, ok = _host_loop(
+        spec, loop.make_body(spec, params, slots, t_stop, t_next), st)
+
+    # ---- 4. flush terminal slots, free them
+    rej = st.task_state == TASK_REJECTED
+    term = ((st.task_state == TASK_DONE) | rej) & (slots.gid >= 0)
+    flush = dict(gid=torch.where(term, slots.gid, -1),
+                 t_done=torch.where(term, st.t_done, math.inf),
+                 rejected=term & rej, t_end=st.t,
+                 energy=lane_sum(st.meters.pm.energy))
+    slots = Trace(arrival=torch.where(term, math.inf, slots.arrival),
+                  cores=torch.where(term, 0.0, slots.cores),
+                  work=torch.where(term, 0.0, slots.work),
+                  gid=torch.where(term, -1, slots.gid))
+    st = st._replace(task_state=torch.where(term, TASK_DONE, st.task_state),
+                     task_vm=torch.where(term, -1, st.task_vm),
+                     t_done=torch.where(term, math.inf, st.t_done))
+    return StreamCarry(state=st, slots=slots,
+                       compact_ok=carry.compact_ok and ok is not False), flush
+
+
+_NP_TRACE = {"arrival": np.float32, "cores": np.float32, "work": np.float32,
+             "gid": np.int32}
+
+
+def _host_array(x, dtype) -> np.ndarray:
+    """``x`` (array or tensor) as a numpy array on the host."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype)
+
+
+def _host_window(w: Trace) -> Trace:
+    """``w`` as numpy arrays on the host (a device tensor is copied)."""
+    return Trace(*(None if x is None else _host_array(x, _NP_TRACE[k])
+                   for k, x in zip(Trace._fields, w)))
+
+
+def _replayable(windows) -> bool:
+    return hasattr(windows, "n_windows") and hasattr(windows, "window")
+
+
+def _as_window_iter(windows, window_size=None):
+    """``(iterator of gid-carrying host windows, W)`` from ``windows``: a
+    :class:`~repro_torch.core.trace.WindowedTrace`, a sequence or a
+    generator of :class:`Trace` windows (gid-carrying, or plain, which
+    get sequential global ids in arrival order).  Windows must be
+    time-sorted across the stream; ``chunk_trace`` guarantees it, a
+    generator promises it.  Each window is held as numpy arrays, so its
+    first arrival is read without a device read."""
+    if _replayable(windows):
+        seq = (_host_window(windows.window(k))
+               for k in range(windows.n_windows))
+        return seq, int(windows.window_size)
+
+    def gen():
+        offset = 0
+        W = window_size
+        for w in windows:
+            w = _host_window(w)
+            if w.gid is None:
+                w = w._replace(gid=np.arange(offset, offset + w.n,
+                                             dtype=np.int32))
+                offset += w.n
+            if W is not None and w.n != W:
+                if w.n > W:
+                    raise ValueError(
+                        f"window of {w.n} tasks exceeds the stream's "
+                        f"window size {W}; all windows must share one "
+                        f"shape (pad the last window, as chunk_trace does)")
+                pad = W - w.n
+                w = Trace(*(np.concatenate([x, np.full((pad,), fill,
+                                                       x.dtype)])
+                            for x, fill in zip(w, (np.inf, 0.0, 0.0, -1))))
+            yield w
+
+    return gen(), window_size
+
+
+def _chain_one(first, rest):
+    yield first
+    yield from rest
+
+
+def _first_arrival(w: Trace) -> float:
+    """The window's first valid arrival (a host float, exact in f32): the
+    ``t_next`` sentinel.  Windows are time-sorted, so this is the minimum
+    the monolithic horizon takes over every arrival not yet loaded."""
+    valid = w.gid >= 0
+    return float(w.arrival[valid].min()) if valid.any() else math.inf
+
+
+def _stream_shards(spec: CloudSpec, windows, shards, n_slots, t_stop):
+    """Replay ``windows`` through every shard of ``shards`` (a list of
+    ``(LaneParams, device)``), window by window, so that a generator is
+    read once.  Returns ``(results, ok)``: one lane-axis
+    :class:`StreamResult` a shard, or ``(None, False)`` when a compaction
+    bucket overflowed (the replay stops there)."""
+    it, W = _as_window_iter(windows)
+    cur = next(it, None)
+    if cur is None:
+        raise ValueError("simulate_stream needs at least one window")
+    if W is None:        # generator input: the first window fixes the shape
+        it, _ = _as_window_iter(_chain_one(cur, it), window_size=cur.n)
+        cur = next(it)
+    Q = default_n_slots(spec, cur.n) if n_slots is None else int(n_slots)
+    carries = [_init_stream_lanes(spec, Q, p, dev) for p, dev in shards]
+    t_stops = [torch.full((p.pm_cores.shape[0],), t_stop,
+                          dtype=torch.float32, device=dev)
+               for p, dev in shards]
+    flushes = [[] for _ in shards]
+    # t_prev_next = 0 makes the first step run the monolithic pre-loop
+    # management pass (the clock starts at 0 >= 0)
+    t_prev_next = 0.0
+    while cur is not None:
+        nxt = next(it, None)
+        t_next = math.inf if nxt is None else _first_arrival(nxt)
+        for i, (p, dev) in enumerate(shards):
+            window = Trace(*(torch.from_numpy(x).to(dev) for x in cur))
+            carries[i], flush = _stream_step(spec, carries[i], window, p,
+                                             t_prev_next, t_next, t_stops[i])
+            if not carries[i].compact_ok:
+                return None, False
+            flushes[i].append(flush)
+        t_prev_next, cur = t_next, nxt
+    # the global task count, from every flushed and live gid: one read a
+    # shard
+    n_total = 1 + max(
+        int(torch.cat([f["gid"] for f in fl] + [c.slots.gid], -1).max())
+        for c, fl in zip(carries, flushes))
+    return [_assemble_stream(c, fl, n_total)
+            for c, fl in zip(carries, flushes)], True
+
+
+def _assemble_stream(carry: StreamCarry, flushes: list[dict],
+                     n_total: int) -> StreamResult:
+    """Scatter the per-window flushes back onto the global task axis."""
+    gids = torch.cat([f["gid"] for f in flushes], dim=-1)
+    idx = torch.where(gids >= 0, gids, n_total)
+    B = gids.shape[0]
+    dev = gids.device
+    completion = scatter_drop(
+        torch.full((B, n_total), math.inf, dtype=torch.float32, device=dev),
+        idx, torch.cat([f["t_done"] for f in flushes], dim=-1))
+    rejected = scatter_drop(
+        torch.zeros((B, n_total), dtype=torch.bool, device=dev), idx,
+        torch.cat([f["rejected"] for f in flushes], dim=-1))
+    st = carry.state
+    return StreamResult(
+        state=st,
+        completion=completion,
+        rejected=rejected,
+        energy=st.meters.pm.energy,
+        energy_sampled=st.meters.pm_sampled,
+        meters=st.meters,
+        n_events=st.n_events,
+        t_end=st.t,
+        overflow=st.overflow,
+        window_t_end=torch.stack([f["t_end"] for f in flushes], dim=-1),
+        window_energy=torch.stack([f["energy"] for f in flushes], dim=-1),
+    )
+
+
+def _run_stream(spec: CloudSpec, windows, shards, n_slots,
+                t_stop) -> list[StreamResult]:
+    """:func:`_stream_shards`, replayed dense (under a ``RuntimeWarning``)
+    when a compaction bucket overflowed.  A replayable window source
+    (``WindowedTrace``) restarts the whole stream: the carried state
+    already consumed compacted windows, so a switch mid-stream would not
+    be bit-identical.  A consumed generator cannot be replayed: that
+    raises ``RuntimeError``."""
+    res, ok = _stream_shards(spec, windows, shards, n_slots, t_stop)
+    if ok:
+        return res
+    if _replayable(windows):
+        _warn_dense_rerun(spec, shards[0][1])
+        return _stream_shards(dense_spec(spec), windows, shards, n_slots,
+                              t_stop)[0]
+    raise RuntimeError(
+        "active-set compaction bucket overflowed mid-stream and the "
+        "window source is a consumed generator that cannot be replayed; "
+        "rerun with spec.compact=0 (dense) or pass a replayable "
+        "WindowedTrace")
+
+
+def simulate_stream(spec: CloudSpec, windows,
+                    params: CloudParams | None = None, *,
+                    n_slots: int | None = None, t_stop: float = math.inf,
+                    device=None) -> StreamResult:
+    """Replay a windowed trace window by window, bit-identical to
+    :func:`simulate` on the concatenated trace, with a task axis of
+    ``n_slots`` slots instead of the total trace length.
+
+    ``windows`` is a :class:`repro_torch.core.trace.WindowedTrace` (from
+    ``chunk_trace``), or any sequence or generator of time-sorted
+    :class:`Trace` windows (e.g.
+    :func:`repro_torch.data.pipeline.gwa_window_stream`: the full trace
+    is never held).  ``n_slots`` bounds the tasks live at once (default
+    :func:`default_n_slots`); exhaustion sets ``overflow``.  The run is
+    the stream batch of one lane
+    (:func:`repro_torch.experiments.shard.simulate_stream_batch`),
+    squeezed.  ``device`` as in :func:`simulate`."""
+    dev = resolve_device(device)
+    if params is None:
+        params = CloudParams.for_spec(spec)
+    _check_meter_params(spec, params)
+    res = _run_stream(spec, windows, [(lane_params(params, 1, dev), dev)],
+                      n_slots, t_stop)
+    return drop_lane(res[0])
 
 
 def start_migration(spec: CloudSpec, params: CloudParams, st: CloudState,
@@ -624,9 +1024,12 @@ def params_from_numpy(flat: dict) -> CloudParams:
 
 
 def trace_from_numpy(flat: dict, device=None) -> Trace:
-    """:class:`Trace` tensors from ``{"arrival", "cores", "work"}``."""
+    """:class:`Trace` tensors from ``{"arrival", "cores", "work"}`` and,
+    for a window, ``"gid"`` (int32)."""
     dev = resolve_device(device)
-    return Trace(*(_tensor(np.asarray(flat[k], np.float32), dev)
+    return Trace(*(_tensor(np.asarray(flat[k], np.int32 if k == "gid"
+                                      else np.float32), dev)
+                   if k in flat or k != "gid" else None
                    for k in Trace._fields))
 
 

@@ -111,6 +111,13 @@ def advance(ctx: StageCtx, st: CloudState):
     tail_cand.append(ctx.arrival_sorted.gather(
         1, torch.clamp_max(nxt, T - 1))[:, 0] - st.t)
     tail_mask.append(nxt[:, 0] < T)
+    # Streaming windows add the first arrival of the next, not yet loaded
+    # window: arrivals are window-sorted, so this one sentinel is the min
+    # the monolithic engine takes over every future task's arrival.  A
+    # monolithic run (t_next None) keeps the candidate vector as it is.
+    if ctx.t_next is not None:
+        tail_cand.append(ctx.t_next - st.t)
+        tail_mask.append(ctx.t_next > st.t)
     cand = torch.cat(flow_cand + [st.pstate_end - t,
                                   torch.stack(tail_cand, dim=1)], dim=1)
     mask = torch.cat(flow_mask + [trans & torch.isfinite(st.pstate_end),

@@ -19,6 +19,8 @@ the device and the engine reads it in the same read.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..energy import PM_SWITCHING_OFF, PM_SWITCHING_ON
@@ -34,6 +36,13 @@ STAGES = (
     pm_sched.pm_sched,       # §3.5.1 PM policy hook
     vm_sched.vm_sched,       # §3.5.1 VM policy hook
 )
+
+# The management suffix of the pipeline (the policy hooks).  Streaming
+# windows discard exactly these two stages on the hand-over pass (the one
+# whose horizon lands the clock on the next window's first arrival): the
+# monolithic engine runs them with that arrival already queued, so the
+# next window's step runs them again once the arrival is loaded.
+N_MANAGEMENT_STAGES = 2
 
 # Passes per body between two host reads of the loop condition when
 # ``spec.steps_per_iter == 0``.  Every pass after the first is guarded by
@@ -62,6 +71,12 @@ def termination(ctx: StageCtx, st: CloudState, snap) -> CloudState:
     more = (live2.any(-1) | pend2.any(-1) | trans2.any(-1)
             | queued.any(-1))
     hit_stop = torch.isfinite(ctx.t_stop) & (st.t >= ctx.t_stop)
+    if ctx.t_next is not None:
+        # streaming: the tasks of later windows are work that remains, and
+        # reaching the next window's first arrival ends this window's loop
+        # (the next step resumes from the same carried state)
+        more = more | (ctx.t_next > st.t)
+        hit_stop = hit_stop | (st.t >= ctx.t_next)
     changed = ((st.task_state != ts0).any(-1) | (st.vstage != vs0).any(-1)
                | (st.pstate != ps0).any(-1) | (st.f_active != fa0).any(-1))
     return st._replace(running=(ctx.has_event | changed) & more & ~hit_stop)
@@ -72,7 +87,7 @@ def lanes_going(spec, st: CloudState) -> torch.Tensor:
     return st.running & (st.n_events < spec.max_events)
 
 
-def make_body(spec, params, trace, t_stop):
+def make_body(spec, params, trace, t_stop, t_next=None):
     """The loop body ``body(st, guard) -> (st, ok)``: K pipeline passes.
     ``guard`` is None when every lane goes on (the host's read said so),
     else the lanes' loop condition [B]: the lanes it excludes keep their
@@ -80,15 +95,35 @@ def make_body(spec, params, trace, t_stop):
     in the lanes whose entry state had settled, so K passes give exactly
     the state and event count of K single passes.  ``ok`` [B] is the
     compaction verdict of the passes kept (a device bool a lane), None
-    when compaction is off."""
+    when compaction is off.
+
+    ``t_next`` (streaming windows only) is the first arrival of the next
+    trace window, a host float shared by every lane.  ``None``, or
+    ``inf`` for the last window (where the sentinel's candidate, its
+    termination terms and the hand-over select can change nothing),
+    composes exactly the monolithic body."""
     arrival_sorted = torch.sort(trace.arrival, dim=-1).values
+    if t_next is not None and math.isfinite(t_next):
+        t_next = torch.full(t_stop.shape, t_next, dtype=torch.float32,
+                            device=t_stop.device)
+    else:
+        t_next = None
 
     def one_pass(st: CloudState):
         ctx = StageCtx(spec=spec, params=params, trace=trace, t_stop=t_stop,
-                       arrival_sorted=arrival_sorted)
+                       t_next=t_next, arrival_sorted=arrival_sorted)
         snap = (st.task_state, st.vstage, st.pstate, st.f_active)
-        for stage in STAGES:
+        for stage in STAGES[:-N_MANAGEMENT_STAGES]:
             ctx, st = stage(ctx, st)
+        st_pre = st
+        for stage in STAGES[-N_MANAGEMENT_STAGES:]:
+            ctx, st = stage(ctx, st)
+        if t_next is not None:
+            # the hand-over pass: the clock reached the next window's first
+            # arrival, so the management stages ran without that (not yet
+            # loaded) task queued.  Discard their delta in those lanes; the
+            # next window's step replays them with the arrival present.
+            st = select_lanes(st_pre.t >= t_next, st_pre, st)
         ok = None if ctx.compact is None else ctx.compact.ok
         return termination(ctx, st, snap), ok
 

@@ -105,6 +105,13 @@ class StageCtx(NamedTuple):
     params: Any                        # LaneParams: every leaf [B, ...]
     trace: Any                         # Trace of [B, T] tensors
     t_stop: torch.Tensor               # f32[B]
+    # Streaming windows: the first arrival of the next trace window, one
+    # value a lane (the windows are shared, so every lane holds the same),
+    # always finite; None in a monolithic run and in a stream's last
+    # window.  It joins the horizon candidates, keeps termination's "work
+    # remains" true while windows remain, and gates the management stages
+    # off on the hand-over pass (`loop.driver.make_body`).
+    t_next: torch.Tensor | None = None           # f32[B]
     arrival_sorted: torch.Tensor | None = None   # f32[B, T]
 
     # -- filled by the `advance` stage -----------------------------------
@@ -148,7 +155,10 @@ def drop_lane(tree, lane: int = 0):
 def select_lanes(cond: torch.Tensor, new, old):
     """Leaf-wise ``where(cond, new, old)`` over two trees of one shape,
     ``cond`` [B] picking lane by lane (broadcast over each leaf's other
-    axes)."""
+    axes).  A leaf that is the same tensor in both trees is kept as it
+    is: the select could not change it."""
+    if new is old:
+        return new
     if torch.is_tensor(new):
         c = cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim()))
         return torch.where(c, new, old)

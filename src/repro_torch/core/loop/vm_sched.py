@@ -46,10 +46,14 @@ def serve_queue(spec, params, trace, st: CloudState, *,
     arrival time; ``reject_unfit`` rejects a head request no running host
     can currently fit (the paper's non-queuing cloud).  Oversized requests
     (larger than one PM) are always rejected.  Ties break on the first
-    index, as the reference's ``argmin``/``argmax`` do.
+    index, as the reference's ``argmin``/``argmax`` do, or, when the
+    trace carries global task ids (a streaming slot table, whose slot
+    order is recycled), on the lowest ``gid``: the task the monolithic
+    engine's first index picks.
     """
     lay = spec.layout
     qkey = trace.cores if smallest_first else trace.arrival
+    gid = getattr(trace, "gid", None)
     t0 = st.t[:, None]
     release = st.t + params.latency_s
     while True:
@@ -59,7 +63,14 @@ def serve_queue(spec, params, trace, st: CloudState, *,
             # an empty queue makes the round an exact no-op that ends the loop
             break
         key = torch.where(queued, qkey, math.inf)
-        head = torch.argmin(key, dim=-1)
+        if gid is None:
+            head = torch.argmin(key, dim=-1)
+        else:
+            cand = queued & (key == key.amin(-1, keepdim=True))
+            head_gid = torch.where(cand, gid, torch.iinfo(gid.dtype).max
+                                   ).amin(-1, keepdim=True)
+            head = torch.argmax((cand & (gid == head_gid)).to(torch.uint8),
+                                dim=-1)
         h_cores = trace.cores.gather(1, head[:, None])[:, 0]
 
         oversize = h_cores > params.pm_cores

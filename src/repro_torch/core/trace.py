@@ -3,15 +3,19 @@
 Port of ``repro.core.trace``: the same numpy generators, seeded the same way,
 so every array is bit-equal to the reference's.  The traces hold numpy
 arrays; :func:`repro_torch.core.engine.simulate` moves them to the device.
+:func:`chunk_trace` cuts a trace into the fixed-shape windows of
+:func:`repro_torch.core.engine.simulate_stream` (CPU tensors).
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
-from .engine import Trace
+from .engine import Trace, _host_array
 
 
 def synthetic_trace(n_tasks: int, parallel: int, spread_s: float = 10.0,
@@ -79,6 +83,81 @@ def gwa_like_trace(family: str, n_tasks: int, *, perf_core: float = 1.0,
     cores = np.minimum(cores, cap)
     return Trace(arrival=arrival, cores=cores,
                  work=np.asarray(runtime * cores * perf_core, np.float32))
+
+
+class WindowedTrace(NamedTuple):
+    """A trace chunked on the task axis: ``n_windows`` windows of one
+    shape ``[W]``, the last one padded (``gid == -1`` marks a pad entry:
+    ``arrival == inf``, zero cores and work).  CPU tensors;
+    :func:`repro_torch.core.engine.simulate_stream` replays them with a
+    task axis of a fixed slot pool, whatever the total length."""
+
+    arrival: torch.Tensor  # f32[n_windows, W]
+    cores: torch.Tensor    # f32[n_windows, W]
+    work: torch.Tensor     # f32[n_windows, W]
+    gid: torch.Tensor      # i32[n_windows, W]; -1 = pad
+
+    @property
+    def n_windows(self) -> int:
+        return self.arrival.shape[0]
+
+    @property
+    def window_size(self) -> int:
+        return self.arrival.shape[1]
+
+    @property
+    def n_tasks(self) -> int:
+        """Number of real (non-pad) tasks across all windows."""
+        return int((self.gid >= 0).sum())
+
+    def window(self, k: int) -> Trace:
+        """Window ``k`` as a gid-carrying :class:`Trace`."""
+        return Trace(arrival=self.arrival[k], cores=self.cores[k],
+                     work=self.work[k], gid=self.gid[k])
+
+    def windows(self):
+        """The windows in stream order (``__iter__`` stays the NamedTuple's
+        iteration over its fields)."""
+        for k in range(self.n_windows):
+            yield self.window(k)
+
+
+def chunk_trace(trace: Trace, window: int) -> WindowedTrace:
+    """Chunk a :class:`Trace` into fixed-shape windows for
+    :func:`repro_torch.core.engine.simulate_stream`, on the host.
+
+    The last window is padded up to ``window`` tasks and masked (``gid ==
+    -1``, ``arrival == inf``); global ids are the original task indices
+    (or the trace's own ``gid``), so a streamed replay's per-task outputs
+    align with the monolithic trace axis.  An unsorted trace is first
+    sorted by arrival, stably (ties keep their relative order): the
+    streaming sentinel, the next window's first arrival, is the true
+    horizon minimum only when arrivals never go back in time."""
+    W = int(window)
+    if W <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    arrival = _host_array(trace.arrival, np.float32)
+    T = arrival.shape[0]
+    if T == 0:
+        raise ValueError("chunk_trace needs a non-empty trace")
+    gid = (_host_array(trace.gid, np.int32) if trace.gid is not None
+           else np.arange(T, dtype=np.int32))
+    cores = _host_array(trace.cores, np.float32)
+    work = _host_array(trace.work, np.float32)
+    if np.any(np.diff(arrival) < 0):
+        order = np.argsort(arrival, kind="stable")
+        arrival, cores, work, gid = (arrival[order], cores[order],
+                                     work[order], gid[order])
+    n_windows = -(-T // W)
+    pad = n_windows * W - T
+
+    def chunk(x, fill):
+        x = np.concatenate([x, np.full((pad,), fill, x.dtype)])
+        return torch.from_numpy(x.reshape(n_windows, W))
+
+    return WindowedTrace(arrival=chunk(arrival, np.inf),
+                         cores=chunk(cores, 0.0), work=chunk(work, 0.0),
+                         gid=chunk(gid, -1))
 
 
 def filter_fitting(trace: Trace, pm_cores: float) -> Trace:

@@ -170,11 +170,14 @@ def fill_round_plain(plan: FillPlan, r, live, unfrozen, perf):
     S = perf.shape[0]
     rl = torch.where(live, r, 0.0)
     uf = unfrozen.to(torch.float32)
-    seg_ids = torch.arange(S, device=perf.device)
 
     def seg(off, csr, x):
-        n = torch.diff(off.long())
-        ids = torch.repeat_interleave(seg_ids, n)
+        # each plan entry's segment id: the number of segment ends at or
+        # before it (the ids repeated by their counts; on the CPU a search
+        # takes a small part of repeat_interleave's host time)
+        off = off.long()
+        ids = torch.searchsorted(off[1:], torch.arange(
+            int(off[-1]), device=off.device), right=True)
         j = csr[:ids.numel()].long()
         return torch.zeros((S,), dtype=torch.float32,
                            device=x.device).index_add_(0, ids, x[j])

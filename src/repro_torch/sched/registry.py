@@ -123,6 +123,10 @@ def code_of(layer: str, name: str) -> int:
     return get(layer, name).code
 
 
+def name_of(layer: str, code: int) -> str:
+    return get(layer, int(code)).name
+
+
 def run_stage(layer: str, ctx, st):
     """The policy stage of ``layer``: each lane of ``st`` through the policy
     its code names (``ctx.params``' host codes of that layer)."""

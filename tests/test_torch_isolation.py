@@ -33,7 +33,12 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 40
     assert {PORT / "models" / "lm.py", PORT / "serve" / "engine.py",
-            PORT / "kernels" / "attention.py"} <= set(files)
+            PORT / "kernels" / "attention.py",
+            PORT / "data" / "pipeline.py",
+            PORT / "experiments" / "shard.py",
+            PORT / "experiments" / "pareto.py",
+            PORT / "experiments" / "ensemble.py",
+            PORT / "experiments" / "tournament.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -82,6 +87,45 @@ def test_simulate_batch_runs_with_jax_blocked():
         "                            device='cpu')\n"
         "assert res.n_events.shape == (2,) and bool((res.n_events > 1).all())\n"
         "assert res.readings(spec)['iaas_total'].shape == (2,)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_stream_and_experiments_run_with_jax_blocked():
+    """The streamed path (chunk_trace, gwa_window_stream, simulate_stream,
+    simulate_stream_batch) and the experiments layer run with every
+    import of JAX or the reference refused."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None      # any import of them now fails\n"
+        "from repro_torch.core import engine\n"
+        "from repro_torch.core.trace import chunk_trace, synthetic_trace\n"
+        "from repro_torch.data.pipeline import gwa_window_stream\n"
+        "from repro_torch.experiments import pareto, shard, tournament\n"
+        "spec, p = engine.make_cloud(n_pm=2, n_vm=4, pm_cores=4.0,\n"
+        "                            pm_sched='ondemand')\n"
+        "tr = synthetic_trace(6, 3, seed=1)\n"
+        "res = engine.simulate_stream(spec, chunk_trace(tr, 4), p,\n"
+        "                             device='cpu')\n"
+        "mono = engine.simulate(spec, tr, p, device='cpu')\n"
+        "assert res.completion.tolist() == mono.completion.tolist()\n"
+        "g = engine.simulate_stream(spec, gwa_window_stream('das2', 8, 4,\n"
+        "                           max_cores=4), p, device='cpu')\n"
+        "assert g.completion.shape == (8,)\n"
+        "pts = pareto.param_grid(p, net_bw=[50.0, 125.0])\n"
+        "b = shard.simulate_stream_batch(spec, chunk_trace(tr, 4),\n"
+        "                                engine.stack_params(pts),\n"
+        "                                devices=['cpu'])\n"
+        "assert b.n_events.shape == (2,)\n"
+        "assert len(pareto.sweep(spec, tr, pts, devices=['cpu']).rows) == 2\n"
+        "rows = tournament.run(spec, tr, p, schedulers=[(0, 1), (1, 0)],\n"
+        "                      devices=['cpu']).rows\n"
+        "assert [r['vm_sched'] for r in rows] == ['firstfit', 'nonqueuing']\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
