@@ -35,8 +35,10 @@ Phases, each of which raises on failure (nothing is caught):
    lane bit-equal to the CPU plain version, repeat launches bit-equal,
    one launch a call, B = 1 equal to the 1-D launch; timed at B = 1 and
    B = 8 (2);
-4. the main path at full width: 500 PM x 4096 VM under 2000 DAS-2-like
-   tasks (the largest row of the repository's throughput grid), compacted
+4. the main path at full width: 500 PM x 4096 VM (the largest row of the
+   repository's throughput grid) under 1000 DAS-2-like tasks (--tasks;
+   the grid's 2000 since slice 1, cut in slice 8 to keep the script
+   inside its time limit on a slow host), compacted
    (bucket 2048, the reference's auto bucket given explicitly: full_width)
    and under the auto rule, which runs dense on the card
    (full_width_dense), on the same trace, which must agree in events,
@@ -80,21 +82,43 @@ Phases, each of which raises on failure (nothing is caught):
    (streaming_cross_check): twice on the card, bit-identical and bit-equal
    to the monolithic card run, once on the CPU within tolerance, and a
    gwa_window_stream generator of 200 tasks, card against CPU; then the
-   full-width cell at 150 tasks, compacted and dense, the above-gate cell
-   at 100 tasks, the batched full-width cell at 150 and the streamed
-   full-width cell at 150 (in 8 windows) under torch.profiler, summarised
+   full-width cell at 60 tasks, compacted and dense, the above-gate cell
+   at 100 tasks, the batched full-width cell at 60 and the streamed
+   full-width cell at 60 (in 8 windows) under torch.profiler, summarised
    from the trace's raw events: device idle share, device time of each
    hand-written kernel, events/s, kernel launches and host reads per pass
    (the compacted pass may not read the host more often than the dense
    one);
-6. LM kernels: flash_attention and linear_scan against their plain
+6. the standalone sharing core (core/sharing.py, core/network.py,
+   core/cloud.py), each cell with the launch counters set to 0 just
+   before and read just after: sharing_validation (the paper's Figs. 7-9
+   through run_sharing and Fig. 10 through simulate_batch over four power
+   models, against the exact single-provider solution, uncorrected <=
+   corrected, 15/60/60/30 s and the analytic staircase integral within
+   2%; each also on the CPU, events exact and floats within tolerance);
+   sharing_fig12 (the Fig. 11/12 load at parallelism 10,000: 10,000
+   single-core tasks on one spreader of 2,500 units/s with Table 1's
+   power model, every completion and the energy within rtol 1e-3 of a
+   float64 closed form; the solve and the power term's segment sum timed
+   on the busiest pass, 10,000 live); network_full_width (1,000 nodes,
+   5,000 transfers: every out-spreader's work conserved, no transfer
+   faster than its narrowest rate), each of the two with a profiled
+   slice of its first 1,500 passes; network_cross_check (100 nodes, 500
+   transfers) and network_above_gate (6,000 nodes, S = 12,000 > 11,609,
+   the round-wise route, its second card run profiled): two card runs
+   bit-identical, the CPU's events exact and floats within tolerance;
+   cloud_facade (the cross-check cell stopped at half its end time:
+   cloud_info equal card against CPU, then deregister_pm(pm=0) and a
+   resumed simulate equal card against CPU, every task done or rejected,
+   the state_change_events of both steps equal);
+7. LM kernels: flash_attention and linear_scan against their plain
    versions on random cases covering every feature (f32 on the CUDA-core
    kernel, bf16 on the tensor-core one, each with its own tile shape and
    visited-tile count) and at the Jamba hybrid's full-width shapes, timed
    beside the plain version, the bound and (flash) PyTorch's
    scaled_dot_product_attention, with the device time alone and the
    wrapper's host time;
-7. the Jamba hybrid LM at full width, cut from 32 to 16 layers to fit in
+8. the Jamba hybrid LM at full width, cut from 32 to 16 layers to fit in
    HBM: lm.forward over 4096 tokens (lm_forward_full_width), then a
    ServeEngine batch of 4 prompts of 384-512 tokens with 32 new tokens each
    (lm_serve_full_width), with the launch counters set to 0 just before
@@ -103,7 +127,7 @@ Phases, each of which raises on failure (nothing is caught):
    against "chunked", the reference's own plain path (lm_kernel_vs_plain),
    and the reduced config in f32 on the card against the CPU
    (lm_cross_check);
-8. the last line: {"ok": true, "device": {...}}.
+9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is present.  Writes
 the full record to DIR/chip_smoke.json (default build/chip_smoke/).
@@ -934,8 +958,7 @@ def profile_phase(n_tasks: int, n_above: int, n_batched: int) -> dict:
             ("above_gate", 1500, 8192, n_above, -1, None, False),
             ("batched_full_width", 500, 4096, n_batched, -1,
              FULL_WIDTH_SWEEP, False),
-            # the streamed cell in 8 windows, as 2000 tasks in windows of
-            # STREAM_WINDOW are
+            # the streamed cell in 8 windows
             ("streaming_full_width", 500, 4096, n_tasks, -1, None, True)):
         trace = filter_fitting(gwa_like_trace("das2", tasks, seed=7), 64.0)
         spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
@@ -1031,9 +1054,14 @@ def _bits(readings: dict) -> dict:
     return {k: v.cpu().numpy().tobytes() for k, v in readings.items()}
 
 
-# Tasks of the kernel phases' captures and of the profiled full-width runs
-# (the captured busiest pass then lies in the profiled window).
+# Tasks of the kernel phases' captures and of --compare-parent's profiled
+# run.
 CAPTURE_TASKS = 150
+# Tasks of the profile phase's full-width, batched and streamed cells, cut
+# from CAPTURE_TASKS to keep the script inside its time limit (the
+# profiler's stop and summary grow with the events it holds); launches
+# and reads a pass are averages over the profiled passes
+PROFILE_TASKS = 60
 
 # name, PMs, VMs, tasks (None: --tasks), PM policy, spec.compact, bucket.
 # The auto rule (-1) runs dense on the card; 2048 is the reference's auto
@@ -1044,7 +1072,7 @@ MAIN_CELLS = (
     # S = 4P + 2 + V = 14194 > MAX_SOLVE_S: the round-wise path
     ("above_gate", 1500, 8192, 100, "ondemand", -1, 0),
     # the reference default consolidate_idle_frac = 0.6
-    # cut to 1000 tasks (of 2000) since slice 6, to keep the script's time
+    # 1000 tasks since slice 6, to keep the script's time
     ("migrating_full_width", 500, 4096, 1000, "consolidate", 2048, 2048),
 )
 
@@ -1418,7 +1446,7 @@ def _stream_vs_mono(stream: dict, mono: dict) -> list:
             and stream[k].tobytes() != mono[k].tobytes()]
 
 
-# Windows of the streamed cells: 2000 tasks in 8 windows at full width
+# Windows of the streamed cells: 1000 tasks in 4 windows at full width
 # (the default pool of 4096 + 256 slots), 200 in 4 in the cross-check.
 STREAM_WINDOW = 256
 CROSS_STREAM_WINDOW = 64
@@ -1611,6 +1639,536 @@ def streaming_cross_check(mono: dict, device: str = "cuda",
                                   ga[k].tobytes() == gc[k].tobytes()
                                   for k in ga)))
     print(json.dumps({"streaming_cross_check": rec}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The standalone sharing core: the paper's validation figures, the Fig. 12
+# load at its largest parallelism, networks below and above the solve's
+# gate, and the IaaS facade
+# ---------------------------------------------------------------------------
+
+# Fig. 11/12 synthetic load at the largest parallelism of
+# benchmarks/sharing_perf.py (PARALLELISM_FULL): tasks, parallelism, the
+# spreader's capacity (units/s), Table 1's p_min and p_max (W)
+FIG12 = dict(tasks=10_000, parallel=10_000, capacity=2500.0, p_min=368.8,
+             p_max=722.7)
+# the network cells: nodes, transfers, registration window (s), seed
+NETWORK_CELLS = {"network_full_width": (1000, 5000, 600.0, 19),
+                 "network_cross_check": (100, 500, 60.0, 19),
+                 "network_above_gate": (6000, 300, 60.0, 19)}
+# passes of the profiled slice of the two large sharing cells
+SHARING_PROFILE_PASSES = 1500
+NETWORK_BW = (62.5, 125.0, 250.0, 1250.0)   # MB/s
+ROUTE_CAP = 50.0                             # MB/s, every 10th transfer
+
+
+def exact_single_provider(works, capacity, limits) -> np.ndarray:
+    """Exact completion times on one provider, max-min with per-flow caps
+    (float64; the closed form of benchmarks/validation.py, Fig. 7)."""
+    works = np.asarray(works, np.float64).copy()
+    limits = np.asarray(limits, np.float64)
+    t = 0.0
+    done = np.full(len(works), np.nan)
+    active = works > 0
+    while active.any():
+        rates = np.minimum(capacity / active.sum(), limits)
+        for _ in range(len(works)):     # hand capped flows' headroom on
+            free = capacity - rates[active].sum()
+            uncapped = active & (rates < limits)
+            if free <= 1e-12 or not uncapped.any():
+                break
+            rates[uncapped] += free / uncapped.sum()
+            rates = np.minimum(rates, limits)
+        with np.errstate(divide="ignore"):
+            ttc = np.where(active & (rates > 0), works / rates, np.inf)
+        dt = ttc[active].min()
+        works[active] -= rates[active] * dt
+        t += dt
+        newly = active & (works <= 1e-9)
+        done[newly] = t
+        active = active & ~newly
+    return done
+
+
+def staircase_energy(starts, run_s, t_end, p_min, p_max, cores) -> float:
+    """Fig. 10's analytic integral: between events k single-core VMs are
+    busy, so the PM draws p_min + k / cores * (p_max - p_min)."""
+    starts = np.asarray(starts, np.float64)
+    ends = starts + run_s
+    events = np.unique(np.concatenate([starts, ends, [0.0, t_end]]))
+    total = 0.0
+    for a, b in zip(events[:-1], events[1:]):
+        k = ((starts <= (a + b) / 2) & (ends > (a + b) / 2)).sum()
+        total += (p_min + k / cores * (p_max - p_min)) * (b - a)
+    return total
+
+
+def shared_spreader_closed_form(arrival, work, capacity, p_idle, p_span):
+    """Float64 event-driven solution of single-core flows (p_l = 1) on one
+    spreader of ``capacity``: every live flow runs at min(1, capacity /
+    n_live), so all live flows drain alike and a flow ends when the work a
+    flow has done since the start reaches its arrival mark plus its work
+    (a heap of those marks).  Returns completion times, the energy of the
+    linear power model and the most flows live at once."""
+    import heapq
+    order = np.argsort(arrival, kind="stable")
+    arrival = np.asarray(arrival, np.float64)
+    work = np.asarray(work, np.float64)
+    done = np.full(len(work), np.inf)
+    heap, t, done_work, energy, i, peak = [], 0.0, 0.0, 0.0, 0, 0
+    while i < len(order) or heap:
+        n_live = len(heap)
+        rate = min(1.0, capacity / n_live) if n_live else 0.0
+        t_arr = arrival[order[i]] if i < len(order) else np.inf
+        t_end = t + (heap[0][0] - done_work) / rate if heap else np.inf
+        t_new = min(t_arr, t_end)
+        energy += (p_idle + p_span * min(1.0, n_live * rate / capacity)) * (
+            t_new - t)
+        done_work += rate * (t_new - t)
+        t = t_new
+        if t_arr <= t_end:
+            heapq.heappush(heap, (done_work + work[order[i]], order[i]))
+            i += 1
+        else:
+            done[heapq.heappop(heap)[1]] = t
+        peak = max(peak, len(heap))
+    return done, energy, peak
+
+
+def _sharing_flat(res) -> dict:
+    return {k: getattr(res, k).cpu().numpy() for k in res._fields}
+
+
+def _sharing_close(name: str, card: dict, cpu: dict):
+    """``n_events`` and ``ok`` exact, floats within RTOL / ATOL."""
+    assert int(card["n_events"]) == int(cpu["n_events"]), (
+        name, int(card["n_events"]), int(cpu["n_events"]))
+    assert bool(card["ok"]) == bool(cpu["ok"]), name
+    for k in ("completion", "t_end", "energy", "processed"):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{name} card vs cpu: {k}")
+
+
+def _counted(fn, device):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after: ``(result, wall s, launches)``."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    out, wall = timed_call(fn, device)
+    return out, wall, dict(kernels.launch_counts(),
+                           **kernels.sub_launch_counts())
+
+
+def sharing_validation(device: str = "cuda") -> dict:
+    """The paper's validation figures through the port's sharing core and
+    engine (the inputs of benchmarks/validation.py): Fig. 7 against the
+    exact single-provider solution, Fig. 8's uncorrected completions no
+    later than the corrected ones, Fig. 9 against 15/60/60/30 s, Fig. 10
+    (``simulate_batch`` over four power models) against the analytic
+    staircase integral within 2%.  Each runs on ``device`` with the
+    counters set to 0 just before and read just after, and again on the
+    CPU: events exact, floats within RTOL / ATOL."""
+    from repro_torch.core import engine
+    from repro_torch.core.energy import PowerStateTable
+    from repro_torch.core.network import make_topology, transfers_problem
+    from repro_torch.core.sharing import SharingProblem, run_sharing
+
+    def both(build, name):
+        cells = {}
+        for dev in (device, "cpu"):
+            res, wall, launches = _counted(
+                lambda: _sharing_flat(run_sharing(build(dev))), dev)
+            cells[dev] = (res, wall, launches)
+        _sharing_close(name, cells[device][0], cells["cpu"][0])
+        res, wall, launches = cells[device]
+        if device == "cuda":
+            assert launches["maxmin_solve"] == int(res["n_events"]), (
+                name, launches)
+        return res, dict(events=int(res["n_events"]), wall_s=wall,
+                         cpu_wall_s=cells["cpu"][1], launches=launches)
+
+    out = {}
+    works = [2.0 * (i + 1) for i in range(8)]
+    res, rec = both(lambda dev: SharingProblem.build(
+        perf=[4.0], provider=[0] * 8, consumer=[0] * 8, amount=works,
+        limit=[1.0] * 8, device=dev), "fig7")
+    want = exact_single_provider(works, 4.0, [1.0] * 8)
+    rel = np.abs(res["completion"] - want) / want
+    assert rel.max() < 1e-3, ("fig7", res["completion"], want)
+    out["fig7_cpu_sharing"] = dict(rec, completion_s=res["completion"].tolist(),
+                                   exact_s=want.tolist(),
+                                   max_rel_err=float(rel.max()))
+    fig8 = {}
+    for label, pl in (("uncorrected", 1.0), ("corrected", 0.896)):
+        res, rec = both(lambda dev: SharingProblem.build(
+            perf=[4.0], provider=[0] * 4, consumer=[0] * 4,
+            amount=works[:4], limit=[pl] * 4, device=dev), f"fig8 {label}")
+        fig8[label] = dict(rec, completion_s=res["completion"].tolist())
+    unc = np.asarray(fig8["uncorrected"]["completion_s"])
+    meas = np.asarray(fig8["corrected"]["completion_s"])
+    assert np.all(unc <= meas + 1e-6), ("fig8", unc, meas)
+    out["fig8_memory_corrected"] = dict(
+        fig8, uncorrected_vs_corrected_err=float(
+            np.abs(unc - meas).max() / meas.max()))
+
+    def fig9(dev):
+        topo = make_topology(in_bw=[1000.0, 51.2, 1000.0, 25.6, 32.0],
+                             out_bw=[64.0, 1000.0, 38.4, 1000.0, 1000.0],
+                             latency=0.0, device=dev)
+        return transfers_problem(topo, src=[0, 0, 2, 2], dst=[1, 3, 3, 4],
+                                 size_mb=[768.0] * 4)
+
+    res, rec = both(fig9, "fig9")
+    want = np.array([768 / 51.2, 768 / 12.8, 768 / 12.8, 768 / 25.6])
+    rel = np.abs(res["completion"] - want) / want
+    assert rel.max() < 1e-3, ("fig9", res["completion"], want)
+    out["fig9_network_bottleneck"] = dict(
+        rec, transfer_s=res["completion"].tolist(), expected_s=want.tolist(),
+        max_rel_err=float(rel.max()))
+
+    spec, base = engine.make_cloud(n_pm=1, n_vm=8, pm_cores=8.0,
+                                   perf_core=1.0, image_mb=0.001,
+                                   boot_work=1e-4, latency_s=1e-4)
+    arrivals = np.arange(8, dtype=np.float32) * 30.0
+    trace = engine.Trace(arrival=arrivals, cores=np.ones(8, np.float32),
+                         work=np.full(8, 600.0, np.float32))
+    p_min, p_max = FIG12["p_min"], FIG12["p_max"]
+    derate = (1.0, 0.9, 0.8, 0.7)
+    params = engine.stack_params([
+        dataclasses.replace(base, power=PowerStateTable.simple(
+            max_w=p_min + d * (p_max - p_min))) for d in derate])
+    runs = {}
+    for dev in (device, "cpu"):
+        res, wall, launches = _counted(lambda: engine.simulate_batch(
+            spec, trace, params, device=dev), dev)
+        runs[dev] = (_flat(res, spec), wall, launches)
+    card, cpu = runs[device][0], runs["cpu"][0]
+    # the whole-IaaS reading less the VMs' sum: a difference of two
+    # readings of about 5e5 J, held to the tolerance of its operands
+    key = "readings.vm_unattributed"
+    np.testing.assert_allclose(
+        card[key], cpu[key], rtol=0.0,
+        atol=RTOL * float(np.abs(cpu["readings.iaas_total"]).max()),
+        err_msg=f"fig10 card vs cpu: {key}")
+    _assert_close("fig10 card vs cpu",
+                  {k: v for k, v in card.items() if k != key},
+                  {k: v for k, v in cpu.items() if k != key})
+    flat, wall, launches = runs[device]
+    got = float(flat["energy"][0].sum())
+    t_end = float(flat["t_end"][0])
+    want = staircase_energy(arrivals, 600.0, t_end, p_min, p_max, 8)
+    rel = abs(got - want) / want
+    assert rel < 0.02, ("fig10", got, want)
+    if device == "cuda":
+        assert launches["maxmin_solve"] == int(flat["n_events"].max()), (
+            "fig10", launches)
+    out["fig10_power_staircase"] = dict(
+        events=flat["n_events"].astype(int).tolist(), wall_s=wall,
+        cpu_wall_s=runs["cpu"][1], launches=launches, energy_j=got,
+        expected_j=want, rel_err=rel, makespan_s=t_end,
+        pmax_derate_sweep=list(derate),
+        sweep_energy_j=flat["energy"].sum(-1).tolist())
+    print(json.dumps({"sharing_validation": out}))
+    return out
+
+
+def _solve_record(dargs, iters: int = 64) -> dict:
+    """The solve on one pass's inputs (``maxmin_solve`` argument tensors on
+    the card): bit-equal to the CPU plain version, its times, the bound of
+    the work it needs (as in :func:`_solve_work`), the plain version's
+    time."""
+    from repro_torch.kernels import maxmin
+    got = maxmin.maxmin_solve(*dargs, max_iters=iters)
+    torch.cuda.synchronize()
+    want = maxmin.maxmin_solve_plain(*(x.cpu() for x in dargs),
+                                     max_iters=iters)
+    g, w = got.cpu().numpy(), want.numpy()
+    assert np.array_equal(g.view(np.uint32), w.view(np.uint32)), (
+        "maxmin_solve: not bit-equal to the CPU plain version at "
+        f"C={dargs[0].shape[-1]} (max abs err {max_abs_err(g, w)})")
+    n_bytes, n_ops, per_lane = _solve_work(dargs, iters)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    live, rounds = per_lane[0]
+    return dict(
+        shape=f"C={dargs[0].shape[-1]} S={dargs[4].shape[-1]} live={live} "
+              f"rounds={rounds}",
+        live=live, rounds=rounds, max_abs_err=max_abs_err(g, w),
+        ms=time_ms(lambda: maxmin.maxmin_solve(*dargs), n=30, warmup=3),
+        device_ms=graph_ms(lambda: maxmin.maxmin_solve(*dargs), n=20),
+        host_us=host_us(lambda: maxmin.maxmin_solve(*dargs), n=200, reps=3),
+        plain_ms=time_ms(lambda: maxmin.maxmin_solve_plain(*dargs), n=5,
+                         warmup=1),
+        bytes=n_bytes, ops=n_ops, bound_ms=b_ms, bound_by=b_by)
+
+
+def sharing_fig12(device: str = "cuda") -> dict:
+    """The Fig. 11/12 synthetic load at the largest parallelism
+    (``FIG12``): single-core tasks (p_l = 1) as consumptions of one
+    spreader (provider = consumer = 0, the Fig. 7 construction) of
+    capacity 2,500 units/s, so up to four times more tasks compete than it
+    serves at full speed, with Table 1's linear power model.  Every
+    completion and the energy within rtol 1e-3 of the float64 closed form;
+    events/s (host clock ending in a synchronize), launches a pass; on the
+    card a profiled slice of the first SHARING_PROFILE_PASSES passes
+    (launches and host reads a pass, device idle share and time by
+    kernel), and the solve and the power term's segment sum timed on the
+    busiest pass's inputs (rebuilt from the closed form)."""
+    from repro_torch.core.arrays import segment_sum
+    from repro_torch.core.sharing import SharingProblem, run_sharing
+    from repro_torch.core.trace import synthetic_trace
+
+    n, par, cap = FIG12["tasks"], FIG12["parallel"], FIG12["capacity"]
+    tr = synthetic_trace(n, par, spread_s=10.0, length_range=(10.0, 90.0),
+                         seed=par)
+    p_idle, p_span = FIG12["p_min"], FIG12["p_max"] - FIG12["p_min"]
+    prob = SharingProblem.build(perf=[cap], provider=np.zeros(n, np.int32),
+                                consumer=np.zeros(n, np.int32),
+                                amount=tr.work, limit=np.ones(n, np.float32),
+                                t_start=tr.arrival, device=device)
+
+    def go(**kw):
+        return run_sharing(prob, p_idle=[p_idle], p_span=[p_span], **kw)
+
+    res, wall, launches = _counted(go, device)
+    flat = _sharing_flat(res)
+    t0 = time.perf_counter()
+    want, energy, peak = shared_spreader_closed_form(
+        tr.arrival, tr.work, cap, p_idle, p_span)
+    closed_s = time.perf_counter() - t0
+    events = int(flat["n_events"])
+    rel = np.abs(flat["completion"] - want) / want
+    e_rel = abs(float(flat["energy"][0]) - energy) / energy
+    rec = dict(tasks=n, parallel=par, capacity=cap, events=events,
+               wall_s=wall, events_per_s=events / wall, launches=launches,
+               launches_per_pass={k: v / events for k, v in launches.items()},
+               peak_live=peak, max_rel_err_completion=float(rel.max()),
+               energy_j=float(flat["energy"][0]), closed_form_energy_j=energy,
+               energy_rel_err=e_rel, closed_form_s=closed_s,
+               t_end=float(flat["t_end"]))
+    print(json.dumps({"sharing_fig12": rec}))
+    assert bool(flat["ok"]), "sharing_fig12: a task did not complete"
+    assert rel.max() < 1e-3, ("sharing_fig12: completions", rel.max())
+    assert e_rel < 1e-3, ("sharing_fig12: energy", e_rel)
+    if device == "cuda":
+        assert launches["maxmin_solve"] == events, launches
+        _, prof = profiled(lambda: go(max_events=SHARING_PROFILE_PASSES))
+        rec["profile"] = _per_pass(prof, SHARING_PROFILE_PASSES)
+        print(json.dumps({"sharing_fig12_profile": rec["profile"]}))
+        # the busiest pass: every task arrived and none done yet
+        t_peak = float(np.max(np.asarray(tr.arrival)))
+        live = torch.from_numpy((np.asarray(tr.arrival) <= t_peak)
+                                & (want > t_peak)).to(device)
+        dargs = (prob.provider, prob.consumer, prob.limit, live, prob.perf)
+        rec["busiest_pass_solve"] = _solve_record(
+            tuple(x[None].contiguous() for x in dargs))
+        r = torch.where(live, torch.clamp(cap / live.sum(), max=1.0), 0.0)
+        rec["busiest_pass_power_segment_sum_ms"] = time_ms(
+            lambda: segment_sum(r[None], prob.provider[None], 1,
+                                where=live[None]), n=30, warmup=3)
+        print(json.dumps({"sharing_fig12_busiest_pass": {
+            "solve": rec["busiest_pass_solve"],
+            "power_segment_sum_ms":
+                rec["busiest_pass_power_segment_sum_ms"]}}))
+    return rec
+
+
+def _per_pass(prof: dict, passes: int) -> dict:
+    """A profiled run's summary with its launches and reads a pass."""
+    keep = {k: v for k, v in prof.items()
+            if k not in ("aten_ops", "device_kernels")}
+    return dict(keep, passes=passes,
+                kernel_launches_per_pass=prof["kernel_launches"] / passes,
+                host_reads_per_pass=prof["host_reads"] / passes)
+
+
+def network_inputs(n_nodes: int, n_transfers: int, window_s: float,
+                   seed: int) -> dict:
+    """A random network from ``seed``: in and out bandwidths drawn from
+    NETWORK_BW, latencies uniform in 1-50 ms, transfers between distinct
+    nodes of 100-1000 MB registered uniformly over ``window_s``, every
+    10th capped at ROUTE_CAP by a router on its route."""
+    rng = np.random.RandomState(seed)
+    bw = np.asarray(NETWORK_BW, np.float32)
+    topo = dict(in_bw=rng.choice(bw, n_nodes), out_bw=rng.choice(bw, n_nodes),
+                latency=rng.uniform(0.001, 0.050, (n_nodes, n_nodes)).astype(
+                    np.float32))
+    src = rng.randint(0, n_nodes, n_transfers)
+    dst = (src + rng.randint(1, n_nodes, n_transfers)) % n_nodes
+    cap = np.full(n_transfers, 3e38, np.float32)
+    cap[::10] = ROUTE_CAP
+    transfers = dict(src=src.astype(np.int32), dst=dst.astype(np.int32),
+                     size_mb=rng.uniform(100.0, 1000.0, n_transfers).astype(
+                         np.float32),
+                     t_register=rng.uniform(0.0, window_s, n_transfers)
+                     .astype(np.float32),
+                     route_cap=cap)
+    return dict(topo=topo, transfers=transfers)
+
+
+def _network_run(cell: str, device: str) -> tuple:
+    """The network cell's problem on ``device``, run once with the
+    counters set to 0 just before and read just after."""
+    from repro_torch.core.network import make_topology, transfers_problem
+    from repro_torch.core.sharing import run_sharing
+    net = network_inputs(*NETWORK_CELLS[cell])
+    prob = transfers_problem(make_topology(**net["topo"], device=device),
+                             **net["transfers"])
+    res, wall, launches = _counted(lambda: _sharing_flat(run_sharing(prob)),
+                                   device)
+    return net, prob, res, wall, launches
+
+
+def network_full_width(device: str = "cuda") -> dict:
+    """1,000 nodes (S = 2,000), 5,000 transfers over 600 s: every transfer
+    done, each out-spreader's processed work the sum of its transfers'
+    sizes (rtol 1e-5), each completion no earlier than its registration,
+    latency and size over its narrowest rate (rtol 1e-5); events/s,
+    launches a pass, and on the card a profiled slice of the first
+    SHARING_PROFILE_PASSES passes."""
+    from repro_torch.core.sharing import run_sharing
+
+    cell = "network_full_width"
+    net, prob, res, wall, launches = _network_run(cell, device)
+    topo, tf = net["topo"], net["transfers"]
+    events = int(res["n_events"])
+    n_nodes = len(topo["in_bw"])
+    sent = np.bincount(tf["src"], tf["size_mb"].astype(np.float64),
+                       minlength=n_nodes)
+    lat = topo["latency"][tf["src"], tf["dst"]].astype(np.float64)
+    rate = np.minimum(np.minimum(topo["out_bw"][tf["src"]],
+                                 topo["in_bw"][tf["dst"]]), tf["route_cap"])
+    lower = tf["t_register"] + lat + tf["size_mb"] / rate.astype(np.float64)
+    rec = dict(nodes=n_nodes, spreaders=2 * n_nodes,
+               transfers=len(tf["size_mb"]), events=events, wall_s=wall,
+               events_per_s=events / wall, launches=launches,
+               launches_per_pass={k: v / events for k, v in launches.items()},
+               t_end=float(res["t_end"]),
+               min_slack=float((res["completion"] / lower).min()))
+    print(json.dumps({cell: rec}))
+    assert bool(res["ok"]), f"{cell}: a transfer did not complete"
+    np.testing.assert_allclose(res["processed"][0::2], sent, rtol=1e-5,
+                               err_msg=f"{cell}: out-spreader work")
+    assert not res["processed"][1::2].any(), f"{cell}: in-spreader work"
+    assert (res["completion"] >= lower * (1 - 1e-5)).all(), (
+        f"{cell}: a transfer beat its narrowest rate")
+    if device == "cuda":
+        assert launches["maxmin_solve"] == events, launches
+        _, prof = profiled(lambda: run_sharing(
+            prob, max_events=SHARING_PROFILE_PASSES))
+        rec["profile"] = _per_pass(prof, SHARING_PROFILE_PASSES)
+        print(json.dumps({f"{cell}_profile": rec["profile"]}))
+    return rec
+
+
+def network_cross_check(cell: str = "network_cross_check",
+                        device: str = "cuda") -> dict:
+    """A network cell twice on ``device`` (bit-identical in every leaf) and
+    once on the CPU (events exact, floats within RTOL / ATOL); above the
+    gate the card's second run is profiled (launches, host reads and
+    fill_round rounds a pass)."""
+    from repro_torch.core.sharing import run_sharing
+    from repro_torch.kernels import maxmin
+
+    _, prob, a, wall_a, launches = _network_run(cell, device)
+    above = not maxmin.solve_fits(prob.amount.shape[0], prob.perf.shape[0])
+    if device == "cuda" and above:
+        (b, wall_b), prof = profiled(lambda: timed_call(
+            lambda: _sharing_flat(run_sharing(prob)), device))
+    else:
+        b, wall_b, _ = _counted(lambda: _sharing_flat(run_sharing(prob)),
+                                device)
+        prof = None
+    for k in a:
+        assert a[k].tobytes() == b[k].tobytes(), (
+            f"{cell}: two runs on {device} differ in {k}")
+    _, _, c, wall_c, _ = _network_run(cell, "cpu")
+    _sharing_close(cell, a, c)
+    events = int(a["n_events"])
+    rec = dict(spreaders=int(prob.perf.shape[0]),
+               transfers=int(prob.amount.shape[0]), above_gate=above,
+               events=events, card_wall_s=[wall_a, wall_b],
+               events_per_s=events / wall_a, cpu_wall_s=wall_c,
+               launches=launches,
+               launches_per_pass={k: v / events for k, v in launches.items()},
+               leaves_bit_equal_card_cpu=sum(
+                   a[k].tobytes() == c[k].tobytes() for k in a))
+    if prof is not None:
+        rec["profile"] = _per_pass(prof, events)
+    print(json.dumps({cell: rec}))
+    assert bool(a["ok"]), f"{cell}: a transfer did not complete"
+    if device == "cuda":
+        if above:
+            assert launches["maxmin_solve"] == 0, launches
+            assert launches["fill_stats"] > 0 and launches["fill_plan"] > 0, (
+                launches)
+        else:
+            assert launches["maxmin_solve"] == events, launches
+    return rec
+
+
+def cloud_facade(mono: dict, device: str = "cuda", n_pm: int = 20,
+                 n_vm: int = 1024) -> dict:
+    """The cross-check cell (alwayson, bucket 128), stopped at half of its
+    end time (``mono``: the card run's leaves) on the card and on the CPU:
+    ``cloud_info`` equal (integers and names exact, floats within RTOL /
+    ATOL); then ``deregister_pm(pm=0)`` and a resumed ``simulate(...,
+    state=st)``: events, task states and every leaf equal card against
+    CPU within tolerance, every task done or rejected; and the
+    ``state_change_events`` of both steps equal."""
+    from repro_torch.core import cloud, engine
+    from repro_torch.core.loop.state import TASK_DONE, TASK_REJECTED
+    from repro_torch.core.trace import filter_fitting, gwa_like_trace
+
+    trace = filter_fitting(gwa_like_trace("das2", 200, seed=7), 64.0)
+    spec, params = engine.make_cloud(n_pm=n_pm, n_vm=n_vm, pm_cores=64.0,
+                                     pm_sched="alwayson", compact=128,
+                                     max_events=4_000_000)
+    t_half = float(mono["t_end"]) / 2
+    out = {}
+    for dev in (device, "cpu"):
+        first, wall1, launches = _counted(lambda: engine.simulate(
+            spec, trace, params, t_stop=t_half, device=dev), dev)
+        info = cloud.cloud_info(spec, params, first.state, trace)
+        st = cloud.deregister_pm(spec, params, first.state, 0, trace)
+        after, wall2, launches2 = _counted(lambda: engine.simulate(
+            spec, trace, params, state=st, device=dev), dev)
+        out[dev] = dict(
+            info=info, flat=_flat(after, spec), wall_s=[wall1, wall2],
+            launches=[launches, launches2],
+            events=(cloud.state_change_events(first.state, st),
+                    cloud.state_change_events(st, after.state)),
+            task_state=after.state.task_state.cpu().numpy())
+    card, cpu = out[device], out["cpu"]
+    for k, w in cpu["info"].items():
+        g = card["info"][k]
+        if isinstance(w, (str, int)) or k == "pm_vm_count":
+            assert g == w, ("cloud_facade: cloud_info", k, g, w)
+        elif k == "meters":
+            for m in w:
+                np.testing.assert_allclose(g[m], w[m], rtol=RTOL, atol=ATOL,
+                                           err_msg=f"cloud_facade {m}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"cloud_facade {k}")
+    _assert_close("cloud_facade resumed card vs cpu", card["flat"],
+                  cpu["flat"])
+    assert card["events"] == cpu["events"], "cloud_facade: state changes"
+    ts = card["task_state"]
+    assert ((ts == TASK_DONE) | (ts == TASK_REJECTED)).all(), (
+        "cloud_facade: a task neither done nor rejected after the resume")
+    info = card["info"]
+    rec = dict(t_stop=t_half, info={k: info[k] for k in (
+        "pm_running", "vm_hosted", "queue_len", "tasks_done",
+        "tasks_active", "capacity_allocated_cores", "energy_joules",
+        "vm_scheduler", "pm_scheduler")},
+        killed_vms=len(card["events"][0]["vm_transitions"]),
+        resumed_events=int(card["flat"]["n_events"]),
+        tasks_completed_after=card["events"][1]["tasks_completed"],
+        card_wall_s=card["wall_s"], cpu_wall_s=cpu["wall_s"],
+        launches=card["launches"])
+    print(json.dumps({"cloud_facade": rec}))
+    assert rec["killed_vms"] > 0, "cloud_facade: PM 0 hosted no VM"
     return rec
 
 
@@ -2084,7 +2642,7 @@ def compare_parent(parent: str, n_tasks: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tasks", type=int, default=2000,
+    ap.add_argument("--tasks", type=int, default=1000,
                     help="DAS-2-like tasks of the full-width run")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"))
     ap.add_argument("--compare-parent", metavar="DIR",
@@ -2161,10 +2719,17 @@ def main() -> int:
                                               cross_check, "evacuate")
     record["streaming_cross_check"] = timed(
         "streaming_cross_check", streaming_cross_check, cross_mono)
-    # the capture's depth, so the busiest captured pass lies in the
-    # profiled window; above the gate the main path's 100
-    record["profile"] = timed("profile", profile_phase, CAPTURE_TASKS, 100,
-                              CAPTURE_TASKS)
+    # above the gate the main path's 100 tasks
+    record["profile"] = timed("profile", profile_phase, PROFILE_TASKS, 100,
+                              PROFILE_TASKS)
+    sharing = record["sharing"] = {}
+    sharing["validation"] = timed("sharing_validation", sharing_validation)
+    sharing["fig12"] = timed("sharing_fig12", sharing_fig12)
+    sharing["network_full_width"] = timed("network_full_width",
+                                          network_full_width)
+    for cell in ("network_cross_check", "network_above_gate"):
+        sharing[cell] = timed(cell, network_cross_check, cell)
+    sharing["cloud_facade"] = timed("cloud_facade", cloud_facade, cross_mono)
     record["main_path"].update(timed("lm", lm_phase, dev))
     record["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
@@ -2196,6 +2761,22 @@ def main() -> int:
         "masked_min_lanes": ("src/repro_torch/csrc/horizon.cu",
                              "src/repro/kernels/horizon.py:55",
                              "batched_full_width")})
+    # the sharing cells' launches of the two solve routes
+    val = sharing["validation"]
+    sharing_cells = {
+        "fig7": val["fig7_cpu_sharing"]["launches"],
+        "fig8_uncorrected": val["fig8_memory_corrected"]["uncorrected"][
+            "launches"],
+        "fig8_corrected": val["fig8_memory_corrected"]["corrected"][
+            "launches"],
+        "fig9": val["fig9_network_bottleneck"]["launches"],
+        "fig10": val["fig10_power_staircase"]["launches"],
+        "sharing_fig12": sharing["fig12"]["launches"],
+        **{cell: sharing[cell]["launches"] for cell in (
+            "network_full_width", "network_cross_check",
+            "network_above_gate")},
+        "cloud_facade_to_half": sharing["cloud_facade"]["launches"][0],
+        "cloud_facade_resumed": sharing["cloud_facade"]["launches"][1]}
     rows = []
     for name, (src, replaces, cell) in sources.items():
         k = kern[name]
@@ -2212,6 +2793,13 @@ def main() -> int:
                 c: record["main_path"][c]["launches"][counter]
                 for c in ("streaming_full_width", "streaming_batched")
                 if counter in ("maxmin_solve", "masked_min")},
+            sharing_launches={
+                c: {k: launches[k] for k in (
+                    ("fill_stats", "fill_plan") if counter == "fill_stats"
+                    else (counter,))}
+                for c, launches in sharing_cells.items()
+                if counter in ("maxmin_solve", "fill_stats")
+                and not name.endswith("_lanes")},
             **{x: k[x] for x in ("variant", "plan_ms", "public_ms",
                                  "graph_ms", "plan_graph_ms",
                                  "longest_segment", "device_ms", "host_us",
@@ -2219,6 +2807,18 @@ def main() -> int:
                                  "launch_floor_ms", "launch_floor_device_ms",
                                  "launch_floor_host_us", "plan_device_ms",
                                  "b1") if x in k}))
+    # the solve at the sharing core's busiest pass (10,000 flows on one
+    # spreader, sharing_fig12)
+    k = sharing["fig12"]["busiest_pass_solve"]
+    rows.append(dict(
+        name="maxmin_solve_sharing", route="cuda",
+        source="src/repro_torch/csrc/maxmin.cu",
+        replaces="src/repro/kernels/maxmin.py:201",
+        launches=sharing["fig12"]["launches"]["maxmin_solve"],
+        max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+        bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
+        shape=k["shape"], main_path_cell="sharing_fig12",
+        device_ms=k["device_ms"], host_us=k["host_us"]))
     record["kernels"] = rows
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

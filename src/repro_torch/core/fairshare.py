@@ -2,7 +2,10 @@
 port of ``repro.core.fairshare``.
 
 * :func:`equal_share_rates` — each spreader splits its capacity evenly;
-* :func:`maxmin_rates` — max-min fairness by progressive filling.
+* :func:`maxmin_rates` — max-min fairness by progressive filling;
+* :func:`rates_for` and :func:`step_tau` — the rates of a 1-D
+  :class:`~repro_torch.core.arrays.Consumptions` pool, and the paper's
+  exact Eq. 1-2 tick over it, each on a lane of one.
 
 ``maxmin_rates`` is the simulation hot spot.  Below the kernel's size gate
 (:func:`repro_torch.kernels.maxmin.solve_fits`) it is one
@@ -24,7 +27,7 @@ from typing import Callable
 import torch
 
 from ..kernels import maxmin as kmaxmin
-from .arrays import segment_sum
+from .arrays import Consumptions, live_mask, segment_sum
 
 
 def _equal_share_offers(provider, consumer, live, perf):
@@ -67,3 +70,46 @@ SCHEDULERS: dict[str, Callable] = {
     "equal": equal_share_rates,
     "maxmin": maxmin_rates,
 }
+
+
+def _one_lane(*xs):
+    return tuple(x[None] for x in xs)
+
+
+def rates_for(cons: Consumptions, t: torch.Tensor, perf: torch.Tensor, *,
+              scheduler: str = "maxmin"
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rates, live)`` of a 1-D pool at the instant ``t``."""
+    live = live_mask(cons, t)
+    r = SCHEDULERS[scheduler](*_one_lane(cons.provider, cons.consumer,
+                                         cons.p_l, live, perf))
+    return r[0], live
+
+
+def step_tau(cons: Consumptions, t: torch.Tensor, perf: torch.Tensor, tau,
+             *, scheduler: str = "maxmin") -> Consumptions:
+    """One exact tick of the provider -> consumer two-pass update.
+
+    Eq. 1 (provider side): ``p_u* = p_u + min(p_r, p(prov), p_l) * tau``,
+    the provider moves work from *remaining* into the in-flight buffer.
+    Eq. 2 (consumer side): the consumer drains ``min(p(cons), p_l) * tau``
+    from the buffer.  As typeset, Eq. 2 would keep ``p_u + p_r`` invariant
+    (no work would ever complete); this is the conservation-consistent
+    reading: ``p_r`` falls by exactly what the provider moved, which also
+    matches the completion criterion ``p_u = 0 and p_r = 0`` of §3.2.3.
+    The offers come from :func:`maxmin_rates` (both sides offer the rate)
+    or, under ``"equal"``, from the equal-split offers of each side."""
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=perf.device)
+    live = live_mask(cons, t)
+    args = _one_lane(cons.provider, cons.consumer, cons.p_l, live, perf)
+    if scheduler == "maxmin":
+        offer_p = offer_c = maxmin_rates(*args)[0]
+    else:
+        offer_p, offer_c = (x[0] for x in _equal_share_offers(
+            args[0], args[1], args[3], args[4]))
+    moved = torch.minimum(cons.p_r, torch.minimum(offer_p, cons.p_l) * tau)
+    moved = torch.where(live, moved, 0.0)
+    p_u_star = cons.p_u + moved
+    drained = torch.minimum(p_u_star, torch.minimum(offer_c, cons.p_l) * tau)
+    drained = torch.where(live, drained, 0.0)
+    return cons._replace(p_u=p_u_star - drained, p_r=cons.p_r - moved)

@@ -40,6 +40,22 @@ def influence_labels(provider, consumer, live, num_spreaders: int, *,
     return label
 
 
+def group_sizes(labels: torch.Tensor) -> torch.Tensor:
+    """i32 size of the group each spreader belongs to (``|G(s,t)|`` of the
+    VM power attribution, Eq. 6), of labels [S] or of each lane of [B, S]."""
+    one = labels.dim() == 1
+    lab = labels[None] if one else labels
+    counts = segment_sum(torch.ones_like(lab), lab, lab.shape[-1])
+    out = counts.gather(1, lab.long())
+    return out[0] if one else out
+
+
+def same_group(labels: torch.Tensor, a, b) -> torch.Tensor:
+    """Whether spreaders ``a`` and ``b`` (ints or index tensors) share an
+    influence group."""
+    return labels[..., a] == labels[..., b]
+
+
 def coupled_vm_counts(labels, host_cpu, vm_spreader, vm_host, n_pm: int):
     """Eq. 6 group membership: ``(in_group bool[B, V], vms_on_host
     i32[B, P])``."""

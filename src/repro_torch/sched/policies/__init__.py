@@ -17,3 +17,8 @@ layer     code   policy
 ========  =====  ==================================================
 """
 from . import baseline, consolidate, defrag, evacuate  # noqa: F401
+from .. import registry as _registry
+
+# the last statement: arms the builtin-unregister protection only once
+# every builtin above has registered
+_registry._builtins_loaded()

@@ -39,19 +39,28 @@ class Policy:
 
 
 _registry: dict[str, dict[int, Policy]] = {layer: {} for layer in LAYERS}
+_builtin_count: dict[str, int] = {}
 _loading_builtins = False
-_builtins_done = False
+
+
+def _builtins_loaded() -> None:
+    """Record the builtin code range; the last statement of the builtin
+    package's import calls it, so the count is whole whoever imported the
+    package first."""
+    if not _builtin_count:
+        for layer in LAYERS:
+            _builtin_count[layer] = len(_registry[layer])
 
 
 def _ensure_builtins() -> None:
-    """Load the builtin policy package once (it registers on import)."""
-    global _loading_builtins, _builtins_done
-    if _builtins_done or _loading_builtins:
+    """Load the builtin policy package once (it registers on import; a
+    failed import is retried on the next call)."""
+    global _loading_builtins
+    if _builtin_count or _loading_builtins:
         return
     _loading_builtins = True
     try:
         from . import policies  # noqa: F401  (side effect: register())
-        _builtins_done = True
     finally:
         _loading_builtins = False
 
@@ -86,6 +95,29 @@ def register(layer: str, name: str, fn: Callable, *, code: int | None = None,
                     requires=tuple(requires), starts_running=starts_running,
                     doc=doc, trigger=trigger)
     table[code] = policy
+    return policy
+
+
+def unregister(layer: str, code_or_name: int | str) -> Policy:
+    """Remove a registered policy and return it.  Only the highest code may
+    go, and never a builtin one, so no published code shifts or is re-used
+    under another meaning.  A :class:`CloudParams` built while the policy
+    existed still holds its code; rebuild params after unregistering.  The
+    reference also drops its compiled engines here; the port compiles no
+    engine, so there is nothing to drop."""
+    _check_layer(layer)
+    _ensure_builtins()
+    policy = get(layer, code_or_name)
+    table = _registry[layer]
+    if policy.code < _builtin_count.get(layer, len(table)):
+        raise ValueError(f"cannot unregister builtin {layer} policy "
+                         f"{policy.name!r} (code {policy.code})")
+    if policy.code != len(table) - 1:
+        raise ValueError(f"only the most recently registered {layer} policy "
+                         f"can be unregistered (highest code "
+                         f"{len(table) - 1}, got {policy.code}): codes are "
+                         f"append-only")
+    del table[policy.code]
     return policy
 
 

@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_reference():
             PORT / "experiments" / "shard.py",
             PORT / "experiments" / "pareto.py",
             PORT / "experiments" / "ensemble.py",
-            PORT / "experiments" / "tournament.py"} <= set(files)
+            PORT / "experiments" / "tournament.py",
+            PORT / "core" / "sharing.py", PORT / "core" / "network.py",
+            PORT / "core" / "cloud.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -126,6 +128,42 @@ def test_stream_and_experiments_run_with_jax_blocked():
         "rows = tournament.run(spec, tr, p, schedulers=[(0, 1), (1, 0)],\n"
         "                      devices=['cpu']).rows\n"
         "assert [r['vm_sched'] for r in rows] == ['firstfit', 'nonqueuing']\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sharing_network_and_cloud_run_with_jax_blocked():
+    """The standalone sharing core (a network problem through
+    run_sharing and run_sharing_tau) and the IaaS facade run with every
+    import of JAX or the reference refused."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None      # any import of them now fails\n"
+        "from repro_torch.core import cloud, engine, network, sharing\n"
+        "from repro_torch.core.trace import synthetic_trace\n"
+        "topo = network.make_topology([50.0, 60.0, 70.0], [40.0, 30.0, 80.0],\n"
+        "                             latency=0.01, device='cpu')\n"
+        "prob = network.transfers_problem(topo, [0, 1, 2], [1, 2, 0],\n"
+        "                                 [100.0, 200.0, 50.0],\n"
+        "                                 route_cap=[20.0, 3e38, 3e38])\n"
+        "res = sharing.run_sharing(prob, p_idle=[1.0] * 6, p_span=[2.0] * 6)\n"
+        "assert bool(res.ok) and int(res.n_events) == 5, res\n"
+        "tau = sharing.run_sharing_tau(prob, tau=0.05, n_steps=200)\n"
+        "assert (abs(tau - res.completion) <= 0.1).all(), (tau, res)\n"
+        "spec, p = engine.make_cloud(n_pm=2, n_vm=4, pm_cores=4.0)\n"
+        "tr = synthetic_trace(6, 3, seed=1)\n"
+        "r1 = engine.simulate(spec, tr, p, t_stop=20.0, device='cpu')\n"
+        "info = cloud.cloud_info(spec, p, r1.state, tr)\n"
+        "assert info['pm_total'] == 2 and info['vm_scheduler'] == 'firstfit'\n"
+        "st = cloud.deregister_pm(spec, p, r1.state, 0, tr)\n"
+        "r2 = engine.simulate(spec, tr, p, state=st, device='cpu')\n"
+        "ev = cloud.state_change_events(st, r2.state)\n"
+        "assert ev['tasks_completed'] > 0\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
