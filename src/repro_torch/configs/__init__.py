@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` resolves through here.
 
-Only ``jamba-v0.1-52b`` is ported.  The reference's other architectures
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``get(arch_id)`` / ``get_reduced(arch_id)`` return :class:`ModelConfig`s;
+``ARCHS`` lists the ten architectures of the reference
+(``repro/configs/__init__.py``), in its order.  Each module is the port's
+own copy of the reference's; an unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -9,25 +11,24 @@ import dataclasses
 
 from repro_torch.models.lm import ModelConfig
 
-from . import jamba_v0_1_52b
+from . import (codeqwen1_5_7b, command_r_35b, gemma2_27b, granite_3_2b,
+               granite_moe_1b_a400m, jamba_v0_1_52b, paligemma_3b,
+               phi3_5_moe_42b, rwkv6_3b, seamless_m4t_large_v2)
 
-ARCHS: dict[str, object] = {jamba_v0_1_52b.ID: jamba_v0_1_52b}
+_MODULES = [
+    jamba_v0_1_52b, gemma2_27b, command_r_35b, granite_3_2b, codeqwen1_5_7b,
+    granite_moe_1b_a400m, phi3_5_moe_42b, rwkv6_3b, seamless_m4t_large_v2,
+    paligemma_3b,
+]
 
-# the reference's other architectures (repro/configs/__init__.py)
-NOT_PORTED = ("gemma2-27b", "command-r-35b", "granite-3-2b",
-              "codeqwen1.5-7b", "granite-moe-1b-a400m",
-              "phi3.5-moe-42b-a6.6b", "rwkv6-3b", "seamless-m4t-large-v2",
-              "paligemma-3b")
+ARCHS: dict[str, object] = {m.ID: m for m in _MODULES}
 
 
 def _module(arch: str):
-    if arch in ARCHS:
-        return ARCHS[arch]
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet (ROADMAP queue 1, "
-            f"item 14)")
-    raise KeyError(f"unknown architecture {arch!r}; ported: {list(ARCHS)}")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown architecture {arch!r}; known: "
+                       f"{list(ARCHS)}")
+    return ARCHS[arch]
 
 
 def get(arch: str, **overrides) -> ModelConfig:

@@ -1,13 +1,16 @@
-"""Serving launcher: bring up a batched ServeEngine for a ported --arch
-(port of ``repro/launch/serve.py``).
+"""Serving launcher: bring up a batched ServeEngine for an --arch (port of
+``repro/launch/serve.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         --requests 8 --batch 4 --max-new 16
 
-Runs on the GPU unless ``--device cpu`` is given.  Reduced configs by
-default, ``--full`` for the published widths (weights random from
-``--seed``).  Checkpoint loading (``--ckpt-dir``) belongs to the training
-stack, which is not ported (ROADMAP queue 1, item 14).
+``--arch`` takes any of the ten architectures of ``configs.ARCHS``; the
+enc-dec one (seamless) is refused by ``ServeEngine``, whose requests carry
+no source frames (the reference fails on it too).  Runs on the GPU unless
+``--device cpu`` is given.  Reduced configs by default, ``--full`` for the
+published widths (weights random from ``--seed``).  Checkpoint loading
+(``--ckpt-dir``) belongs to the training stack, which is not ported
+(ROADMAP queue 1, item 14.5).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ def main(argv=None) -> int:
 
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
-                                  "(ROADMAP queue 1, item 14)")
+                                  "(ROADMAP queue 1, item 14.5)")
     dev = resolve_device(args.device)
     match_xla_matmul()
     cfg = (configs.get(args.arch) if args.full

@@ -10,7 +10,8 @@ gives them back.
 Storage dtype.  The reference keeps every parameter in f32 and casts at use.
 The port stores in the compute dtype each leaf that the reference only ever
 reads through ``.astype(compute dtype)`` (:data:`CAST_AT_USE`), and keeps the
-others (norm weights, the MoE router, Mamba's conv/A/D/dt-bias leaves) in f32.
+others (norm weights, the MoE router, Mamba's conv/A/D/dt-bias leaves, RWKV's
+time and channel mixes, which the reference computes in f32) in f32.
 The numbers are the same, since the cast happens once instead of at each
 use; at full width it halves the memory of the weights.
 """
@@ -170,6 +171,17 @@ def layer_norm(x, weight, bias, *, eps=1e-5):
     return (x * weight + bias).to(dt)
 
 
+def group_norm(x, weight, bias, groups, *, eps=1e-5):
+    """Per-head group norm used by RWKV time-mix output ([B,T,H*D])."""
+    dt = x.dtype
+    B, T, HD = x.shape
+    x = x.float().reshape(B, T, groups, HD // groups)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    x = ((x - mu) * torch.rsqrt(var + eps)).reshape(B, T, HD)
+    return (x * weight + bias).to(dt)
+
+
 def silu(x):
     return x * torch.sigmoid(x)
 
@@ -199,6 +211,17 @@ def rope(x, positions, *, theta: float = 10000.0):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     c, s = torch.cos(ang), torch.sin(ang)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+def sinusoidal_positions(n: int, d: int, *, max_scale: float = 1e4,
+                         device=None):
+    """Classic transformer sinusoidal table [n, d] (seamless encoder), on
+    ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    pos = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=dev)[None, :]
+    ang = pos / (max_scale ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x, cap: float):

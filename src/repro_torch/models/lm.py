@@ -1,20 +1,25 @@
-"""Composable LM stacks (port of ``repro/models/lm.py``): the dense-attention
-and hybrid (Mamba + attention, MoE) families.
+"""Composable LM stacks (port of ``repro/models/lm.py``): dense, MoE,
+hybrid (Mamba + attention), RWKV (``ssm``), enc-dec and VLM.
 
-One :class:`ModelConfig` describes an architecture.  Layers are grouped into
-the shortest repeating *pattern* (Jamba -> its 8-layer period) and the
-parameters of each pattern position are stacked on a leading repeats axis,
-as in the reference; :func:`apply_stack` loops over repeats x pattern in
-Python and indexes the stacked leaves.  The RWKV (``ssm``), enc-dec and VLM
-families are not ported (ROADMAP queue 1, item 14) and raise.
+One :class:`ModelConfig` describes any of the ten architectures.  Layers are
+grouped into the shortest repeating *pattern* (gemma2 -> [local, global],
+Jamba -> its 8-layer period, dense -> [layer]) and the parameters of each
+pattern position are stacked on a leading repeats axis, as in the
+reference; :func:`apply_stack` loops over repeats x pattern in Python and
+indexes the stacked leaves.  An enc-dec config adds an encoder stack
+(:func:`encode`, over pre-embedded ``frames``) and a cross-attention
+sub-block in each decoder layer; a VLM config takes pre-embedded
+``patches`` as a bidirectional prefix.
 
 Public API: :func:`lm_spec`, :func:`forward` / :func:`forward_hidden`
-(scoring logits), :func:`init_cache` / :func:`prefill` /
+(scoring logits), :func:`encode`, :func:`init_cache` / :func:`prefill` /
 :func:`decode_step` (serving).  The device is the parameters' device.  The
 cache is ``{"layers": [...], "index": int}`` in the reference's layout with
 a host-int index; :func:`prefill` and :func:`decode_step` write the new
 keys, values and states into its tensors in place and return it with the
-index advanced.
+index advanced (an enc-dec :func:`prefill` sets each cross layer's
+``xk`` / ``xv`` to the encoder's keys and values, as the reference
+replaces them).
 
 On the card, :func:`forward_hidden` (hence :func:`forward`) and the cache
 path set :func:`repro_torch.device.match_xla_matmul` on each call, so that
@@ -29,11 +34,10 @@ import torch
 from ..device import match_xla_matmul_on
 from . import common as cm
 from . import moe as moe_mod
+from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .attention import attention, cache_update
 from .common import spec, stack_specs
-
-UNPORTED_FAMILIES = ("ssm", "encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,13 +117,6 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.family == "encdec"
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP queue 1, item 14)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +210,13 @@ def _ffn_spec(cfg: ModelConfig, ls: LayerSpec) -> dict:
 
 def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> dict:
     d = cfg.d_model
+    if ls.kind == "rwkv":
+        return {
+            "ln1": _norm_spec(cfg, d),
+            "time": rwkv_mod.rwkv_time_spec(d, head_size=cfg.rwkv_head_size),
+            "ln2": _norm_spec(cfg, d),
+            "chan": rwkv_mod.rwkv_channel_spec(d, cfg.d_ff),
+        }
     blk: dict = {"ln": _norm_spec(cfg, d)}
     if ls.kind == "attn":
         blk["attn"] = _attn_spec(cfg)
@@ -222,6 +226,9 @@ def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> dict:
             d_conv=cfg.mamba_d_conv)
     if cfg.sandwich_norm:
         blk["ln_post"] = _norm_spec(cfg, d)
+    if ls.cross:
+        blk["ln_x"] = _norm_spec(cfg, d)
+        blk["xattn"] = _attn_spec(cfg)
     if not cfg.parallel_block:
         blk["ffn_ln"] = _norm_spec(cfg, d)
         if cfg.sandwich_norm:
@@ -230,18 +237,32 @@ def layer_param_spec(cfg: ModelConfig, ls: LayerSpec) -> dict:
     return blk
 
 
+def _decoder_role(cfg: ModelConfig) -> str:
+    return "xdecoder" if cfg.is_encdec else "decoder"
+
+
+def _stack_specs_for(cfg: ModelConfig, role: str, n_layers: int):
+    kinds = layer_kinds(cfg, role=role, n_layers=n_layers)
+    pattern, repeats = find_pattern(kinds)
+    blocks = [stack_specs(layer_param_spec(cfg, ls), repeats)
+              for ls in pattern]
+    return pattern, repeats, blocks
+
+
 def lm_spec(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
-    pattern, repeats = find_pattern(layer_kinds(cfg))
     tree: dict = {
         "embed": spec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                       init="normal", scale=1.0),
         "final_norm": _norm_spec(cfg, cfg.d_model),
-        "blocks": [stack_specs(layer_param_spec(cfg, ls), repeats)
-                   for ls in pattern],
     }
+    _, _, tree["blocks"] = _stack_specs_for(cfg, _decoder_role(cfg),
+                                            cfg.n_layers)
     if not cfg.tie_embeddings:
         tree["unembed"] = spec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    if cfg.is_encdec:
+        _, _, tree["enc_blocks"] = _stack_specs_for(cfg, "encoder",
+                                                    cfg.enc_layers)
+        tree["enc_final_norm"] = _norm_spec(cfg, cfg.d_model)
     return tree
 
 
@@ -260,30 +281,38 @@ def init_params(cfg: ModelConfig, seed: int, *, device=None):
 
 
 def _attn_core(cfg: ModelConfig, ls: LayerSpec, p: dict, h, positions, *,
-               cache=None, index=None):
-    """h (normed input) -> (attention output, cache)."""
+               cache=None, index=None, prefix_len=0, kv_override=None):
+    """h (normed input) -> attention output.  ``kv_override`` (keys and
+    values of the encoder) makes it cross-attention: RoPE on q only,
+    non-causal, no cache."""
+    rope = cfg.use_rope and cfg.pos_embed == "rope"
     q = torch.einsum("btd,dhk->bthk", h, p["wq"].to(h.dtype))
-    k = torch.einsum("btd,dhk->bthk", h, p["wk"].to(h.dtype))
-    v = torch.einsum("btd,dhk->bthk", h, p["wv"].to(h.dtype))
     if "bq" in p:
         q = q + p["bq"].to(h.dtype)
-        k = k + p["bk"].to(h.dtype)
-        v = v + p["bv"].to(h.dtype)
-    if cfg.use_rope and cfg.pos_embed == "rope":
+    if kv_override is None:
+        k = torch.einsum("btd,dhk->bthk", h, p["wk"].to(h.dtype))
+        v = torch.einsum("btd,dhk->bthk", h, p["wv"].to(h.dtype))
+        if "bk" in p:
+            k = k + p["bk"].to(h.dtype)
+            v = v + p["bv"].to(h.dtype)
+        if rope:
+            k = cm.rope(k, positions, theta=cfg.rope_theta)
+    else:
+        k, v = kv_override
+    if rope:
         q = cm.rope(q, positions, theta=cfg.rope_theta)
-        k = cm.rope(k, positions, theta=cfg.rope_theta)
 
     kv_len = None
     q_offset = 0
-    if cache is not None:
+    if cache is not None and kv_override is None:
         k, v = cache_update(cache["k"], cache["v"], k, v, index)
         kv_len = index + h.shape[1]
         q_offset = index
     o = attention(
-        q, k, v, causal=ls.causal, window=ls.window,
-        softcap=cfg.attn_softcap, q_offset=q_offset, scale=cfg.attn_scale,
-        kv_len=kv_len, impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
-        k_chunk=cfg.k_chunk)
+        q, k, v, causal=ls.causal and kv_override is None, window=ls.window,
+        softcap=cfg.attn_softcap, prefix_len=prefix_len, q_offset=q_offset,
+        scale=cfg.attn_scale, kv_len=kv_len, impl=cfg.attn_impl,
+        q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
     return torch.einsum("bthk,hkd->btd", o, p["wo"].to(h.dtype))
 
 
@@ -301,17 +330,42 @@ def _ffn_core(cfg: ModelConfig, ls: LayerSpec, p: dict, h):
             torch.zeros((3,), dtype=torch.float32, device=h.device))
 
 
+def _rwkv_block(cfg: ModelConfig, p: dict, x, cache):
+    """One RWKV block (time mix, channel mix, residuals); ``cache`` is
+    updated in place."""
+    rm = cfg.residual_multiplier
+    h = _apply_norm(cfg, p["ln1"], x)
+    y, (tm_shift, tm_state) = rwkv_mod.rwkv_time_mix(
+        p["time"], h, head_size=cfg.rwkv_head_size, chunk=cfg.scan_chunk,
+        impl=cfg.wkv_impl,
+        state=None if cache is None else (cache["tm_shift"],
+                                          cache["tm_state"]))
+    x = x + rm * y
+    h = _apply_norm(cfg, p["ln2"], x)
+    y, cm_shift = rwkv_mod.rwkv_channel_mix(
+        p["chan"], h, state=None if cache is None else cache["cm_shift"])
+    if cache is not None:
+        cache["tm_shift"].copy_(tm_shift)
+        cache["tm_state"].copy_(tm_state)
+        cache["cm_shift"].copy_(cm_shift)
+    return x + rm * y
+
+
 def apply_layer(cfg: ModelConfig, ls: LayerSpec, p: dict, x, positions, *,
-                cache=None, index=None):
-    """One attention or Mamba block with its FFN and residuals.  ``cache``
+                cache=None, index=None, prefix_len=0, enc_kv=None):
+    """One attention, Mamba or RWKV block with its FFN (and, in an enc-dec
+    decoder, its cross-attention over ``enc_kv``) and residuals.  ``cache``
     (this layer's slice of the serving cache) is updated in place.
     Returns (x, aux3)."""
     rm = cfg.residual_multiplier
+    if ls.kind == "rwkv":
+        return (_rwkv_block(cfg, p, x, cache),
+                torch.zeros((3,), dtype=torch.float32, device=x.device))
     h = _apply_norm(cfg, p["ln"], x)
     if ls.kind == "attn":
         o = _attn_core(cfg, ls, p["attn"], h, positions,
                        cache=None if cache is None else cache["attn"],
-                       index=index)
+                       index=index, prefix_len=prefix_len)
     else:
         o, (conv, ssm) = ssm_mod.mamba_apply(
             p["mamba"], h, d_state=cfg.mamba_d_state, chunk=cfg.scan_chunk,
@@ -327,6 +381,10 @@ def apply_layer(cfg: ModelConfig, ls: LayerSpec, p: dict, x, positions, *,
     if cfg.sandwich_norm:
         o = _apply_norm(cfg, p["ln_post"], o)
     x = x + rm * o
+    if ls.cross:
+        h = _apply_norm(cfg, p["ln_x"], x)
+        x = x + rm * _attn_core(cfg, ls, p["xattn"], h, positions,
+                                kv_override=enc_kv)
     h = _apply_norm(cfg, p["ffn_ln"], x)
     f, aux = _ffn_core(cfg, ls, p["ffn"], h)
     if cfg.sandwich_norm:
@@ -340,17 +398,37 @@ def _at(tree, r: int):
         tree, dict) else tree[r]
 
 
-def apply_stack(cfg: ModelConfig, blocks, x, positions, *, caches=None,
-                index=None):
-    """Every layer in order (repeat-major); returns (x, aux3)."""
-    pattern, repeats = find_pattern(layer_kinds(cfg))
+def _cross_kv(cfg: ModelConfig, p_attn: dict, enc_out):
+    k = torch.einsum("btd,dhk->bthk", enc_out, p_attn["wk"].to(enc_out.dtype))
+    v = torch.einsum("btd,dhk->bthk", enc_out, p_attn["wv"].to(enc_out.dtype))
+    if "bk" in p_attn:
+        k = k + p_attn["bk"].to(enc_out.dtype)
+        v = v + p_attn["bv"].to(enc_out.dtype)
+    return k, v
+
+
+def apply_stack(cfg: ModelConfig, blocks, x, positions, *, role="decoder",
+                n_layers=None, caches=None, index=None, prefix_len=0,
+                enc_out=None, enc_kv_cached=False):
+    """Every layer of the ``role`` stack in order (repeat-major); returns
+    (x, aux3).  A cross layer attends to the ``xk`` / ``xv`` of its cache
+    when ``enc_kv_cached``, else to the projection of ``enc_out``."""
+    pattern, repeats = find_pattern(layer_kinds(cfg, role=role,
+                                                n_layers=n_layers))
     aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
     for r in range(repeats):
         for j, ls in enumerate(pattern):
-            x, a = apply_layer(
-                cfg, ls, _at(blocks[j], r), x, positions,
-                cache=None if caches is None else _at(caches[j], r),
-                index=index)
+            p = _at(blocks[j], r)
+            cache = None if caches is None else _at(caches[j], r)
+            enc_kv = None
+            if ls.cross:
+                if enc_kv_cached:
+                    enc_kv = (cache["xk"], cache["xv"])
+                elif enc_out is not None:
+                    enc_kv = _cross_kv(cfg, p["xattn"], enc_out)
+            x, a = apply_layer(cfg, ls, p, x, positions, cache=cache,
+                               index=index, prefix_len=prefix_len,
+                               enc_kv=enc_kv)
             aux = aux + a
     return x, aux
 
@@ -403,21 +481,58 @@ def _tokens(params, tokens):
     return torch.as_tensor(tokens, dtype=torch.long, device=dev)
 
 
+def _embeds(params, x):
+    """Pre-embedded inputs (``patches``, ``frames``: a tensor or an array
+    of floats) on the parameters' device."""
+    dev = params["embed"].device
+    match_xla_matmul_on(dev)
+    return torch.as_tensor(x, device=dev)
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """Encoder stack over pre-embedded frames [B, S, d] (seamless stub)."""
+    frames = _embeds(params, frames)
+    S = frames.shape[1]
+    positions = torch.arange(S, device=frames.device)[None, :]
+    x = frames.to(cfg.cdtype)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoid(positions, cfg.d_model).to(cfg.cdtype)
+    x, _ = apply_stack(cfg, params["enc_blocks"], x, positions,
+                       role="encoder", n_layers=cfg.enc_layers)
+    return _apply_norm(cfg, params["enc_final_norm"], x)
+
+
 def forward(cfg: ModelConfig, params, batch):
-    """Full-sequence logits for ``batch["tokens"]`` [B, T] (a tensor or an
-    array of ints).  Returns (logits [B, T, vocab] f32, aux3)."""
+    """Full-sequence logits.  ``batch["tokens"]`` [B, T] (a tensor or an
+    array of ints); for a VLM optional ``patches`` [B, P, d] (a prefix),
+    for an enc-dec ``frames`` [B, S, d] (the source).  Returns (logits
+    [B, P + T, vocab] f32, aux3)."""
     h, aux = forward_hidden(cfg, params, batch)
     return unembed(cfg, params, h), aux
 
 
 def forward_hidden(cfg: ModelConfig, params, batch):
     """Like :func:`forward` but stops at the final-normed hidden states."""
-    _check_ported(cfg)
     tokens = _tokens(params, batch["tokens"])
     T = tokens.shape[1]
-    positions = torch.arange(T, device=tokens.device)[None, :]
-    x = embed_tokens(cfg, params, tokens, positions)
-    x, aux = apply_stack(cfg, params["blocks"], x, positions)
+    dev = tokens.device
+    prefix_len = 0
+    enc_out = None
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = _embeds(params, batch["patches"])
+        P = patches.shape[1]
+        positions = torch.arange(P + T, device=dev)[None, :]
+        tok_x = embed_tokens(cfg, params, tokens, positions[:, P:])
+        x = torch.cat([patches.to(cfg.cdtype), tok_x], dim=1)
+        prefix_len = P
+    else:
+        positions = torch.arange(T, device=dev)[None, :]
+        x = embed_tokens(cfg, params, tokens, positions)
+    if cfg.is_encdec:
+        enc_out = encode(cfg, params, batch["frames"])
+    x, aux = apply_stack(cfg, params["blocks"], x, positions,
+                         role=_decoder_role(cfg), prefix_len=prefix_len,
+                         enc_out=enc_out)
     return _apply_norm(cfg, params["final_norm"], x), aux
 
 
@@ -427,22 +542,36 @@ def forward_hidden(cfg: ModelConfig, params, batch):
 
 
 def _layer_cache_spec(cfg: ModelConfig, ls: LayerSpec, batch: int,
-                      max_len: int):
+                      max_len: int, enc_len: int):
     dt = cfg.cdtype
+    if ls.kind == "rwkv":
+        d, hs = cfg.d_model, cfg.rwkv_head_size
+        return {
+            "tm_shift": ((batch, 1, d), dt),
+            "tm_state": ((batch, d // hs * hs * hs), torch.float32),
+            "cm_shift": ((batch, 1, d), dt),
+        }
     if ls.kind == "mamba":
         return {
             "conv": ((batch, cfg.mamba_d_conv - 1, cfg.d_inner), dt),
             "ssm": ((batch, cfg.d_inner * cfg.mamba_d_state), torch.float32),
         }
     kv = ((batch, max_len, cfg.n_kv_heads, cfg.d_head), dt)
-    return {"attn": {"k": kv, "v": kv}}
+    c = {"attn": {"k": kv, "v": kv}}
+    if ls.cross:
+        c["xk"] = c["xv"] = ((batch, enc_len, cfg.n_kv_heads, cfg.d_head),
+                             dt)
+    return c
 
 
-def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
+                 enc_len: int = 0):
     """The decode cache as meta tensors (shapes and dtypes, no storage),
-    layer-stacked like the parameters; ``index`` is the host int 0."""
-    _check_ported(cfg)
-    pattern, repeats = find_pattern(layer_kinds(cfg))
+    layer-stacked like the parameters; ``index`` is the host int 0.
+    ``enc_len`` is the encoder length of an enc-dec config's ``xk`` /
+    ``xv``."""
+    pattern, repeats = find_pattern(layer_kinds(cfg,
+                                                role=_decoder_role(cfg)))
 
     def meta(node):
         if isinstance(node, dict):
@@ -450,37 +579,67 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
         shape, dtype = node
         return torch.empty((repeats,) + shape, dtype=dtype, device="meta")
 
-    return {"layers": [meta(_layer_cache_spec(cfg, ls, batch, max_len))
+    return {"layers": [meta(_layer_cache_spec(cfg, ls, batch, max_len,
+                                              enc_len))
                        for ls in pattern],
             "index": 0}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               enc_len: int = 0, device=None):
     dev = cm.resolve_device(device)
-    struct = cache_struct(cfg, batch, max_len)
+    struct = cache_struct(cfg, batch, max_len, enc_len=enc_len)
     return {"layers": cm.tree_map(
                 lambda _, t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
                 struct["layers"]),
             "index": struct["index"]}
 
 
-def _run_with_cache(cfg: ModelConfig, params, tokens, cache):
-    _check_ported(cfg)
+def _run_with_cache(cfg: ModelConfig, params, tokens, cache, *,
+                    prefix_embeds=None):
     tokens = _tokens(params, tokens)
     T = tokens.shape[1]
     index = int(cache["index"])
     positions = index + torch.arange(T, device=tokens.device)[None, :]
     x = embed_tokens(cfg, params, tokens, positions)
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_embeds = _embeds(params, prefix_embeds)
+        P = prefix_embeds.shape[1]
+        px = torch.arange(P, device=tokens.device)[None, :]
+        x = torch.cat([prefix_embeds.to(cfg.cdtype), x], dim=1)
+        positions = torch.cat([px, positions + P], dim=1)
+        prefix_len = P
     x, _ = apply_stack(cfg, params["blocks"], x, positions,
-                       caches=cache["layers"], index=index)
+                       role=_decoder_role(cfg), caches=cache["layers"],
+                       index=index, prefix_len=prefix_len,
+                       enc_kv_cached=cfg.is_encdec)
     logits = logits_from(cfg, params, x)
-    return logits, {"layers": cache["layers"], "index": index + T}
+    return logits, {"layers": cache["layers"], "index": index + x.shape[1]}
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
     """Run the prompt ``batch["tokens"]`` through the model, filling the
-    cache.  Returns (last-position logits, cache)."""
-    logits, cache = _run_with_cache(cfg, params, batch["tokens"], cache)
+    cache.  An enc-dec config first encodes ``batch["frames"]`` and sets each
+    cross layer's ``xk`` / ``xv`` in the cache to the encoder's keys and
+    values (a tensor of their own, whatever ``enc_len`` the cache was made
+    with, as the reference replaces them); a VLM config puts
+    ``batch["patches"]``, when given, before the tokens as a bidirectional
+    prefix.  Returns (last-position logits, cache)."""
+    if cfg.is_encdec:
+        enc_out = encode(cfg, params, batch["frames"])
+        pattern, repeats = find_pattern(layer_kinds(cfg, role="xdecoder"))
+        for j, ls in enumerate(pattern):
+            if not ls.cross:
+                continue
+            cj = cache["layers"][j]
+            kv = [_cross_kv(cfg, _at(params["blocks"][j]["xattn"], r),
+                            enc_out) for r in range(repeats)]
+            cj["xk"] = torch.stack([k for k, _ in kv]).to(cj["xk"].dtype)
+            cj["xv"] = torch.stack([v for _, v in kv]).to(cj["xv"].dtype)
+    prefix = batch.get("patches") if cfg.family == "vlm" else None
+    logits, cache = _run_with_cache(cfg, params, batch["tokens"], cache,
+                                    prefix_embeds=prefix)
     return logits[:, -1], cache
 
 

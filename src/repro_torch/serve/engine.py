@@ -9,6 +9,11 @@ until every sequence emits ``eos_id`` or reaches its ``max_new_tokens``.
 Sampling is greedy (``argmax``, the first maximum) or, with
 ``temperature > 0``, categorical from the engine's own ``torch.Generator``;
 those samples are not bit-equal to ``jax.random.categorical``'s.
+
+The engine serves token prompts, for every family but enc-dec: an enc-dec
+prompt needs its source ``frames``, which a :class:`Request` does not carry
+(the reference's engine fails on its first prefill with a ``KeyError``);
+this one refuses such a config when it is made.
 """
 from __future__ import annotations
 
@@ -39,6 +44,13 @@ class ServeEngine:
     def __init__(self, cfg, params, *, batch_size: int = 8,
                  max_len: int = 256, eos_id: int = 1,
                  temperature: float = 0.0, seed: int = 0, device=None):
+        if cfg.is_encdec:
+            raise ValueError(
+                f"ServeEngine: {cfg.name} is an encoder-decoder config, whose "
+                f"prompts need their source frames; serve it with "
+                f"lm.prefill(cfg, params, {{'tokens': ..., 'frames': ...}}, "
+                f"lm.init_cache(cfg, B, max_len, enc_len=S)) and "
+                f"lm.decode_step")
         self.device = resolve_device(device)
         got = params["embed"].device
         if got.type != self.device.type:

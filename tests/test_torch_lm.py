@@ -89,13 +89,32 @@ def test_jamba_configs_equal_field_by_field(which):
 
 
 def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        tconfigs.get("rwkv6-3b")
+    """Every architecture of the reference resolves in the port (and its
+    spec builds), an unknown one raises KeyError, and neither package's
+    ServeEngine serves an enc-dec config: its requests carry no frames.
+    The reference fails on its first prefill; the port refuses when the
+    engine is made and names the route that serves it."""
+    assert list(tconfigs.ARCHS) == list(jconfigs.ARCHS)
+    for arch in jconfigs.ARCHS:
+        for which in ("get", "get_reduced"):
+            cfg = getattr(tconfigs, which)(arch)
+            assert cfg.name == arch
+            tlm.lm_spec(cfg)
     with pytest.raises(KeyError):
         tconfigs.get("no-such-model")
-    rwkv = tlm.ModelConfig(family="ssm")
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        tlm.lm_spec(rwkv)
+    with pytest.raises(KeyError):
+        tconfigs.get_reduced("no-such-model")
+    encdec = "seamless-m4t-large-v2"
+    jcfg = jconfigs.get_reduced(encdec)
+    jparams = jcm.materialize(jlm.lm_spec(jcfg), jax.random.PRNGKey(0))
+    jeng = JServeEngine(jcfg, jparams, batch_size=1, max_len=16)
+    jeng.submit(JRequest(rid=0, prompt=[3, 4, 5], max_new_tokens=2))
+    with pytest.raises(KeyError, match="frames"):
+        jeng.run()
+    tcfg = tconfigs.get_reduced(encdec)
+    tparams = tlm.init_params(tcfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="lm.prefill.*lm.decode_step"):
+        ServeEngine(tcfg, tparams, device="cpu")
 
 
 def test_layer_pattern_and_spec_match():
