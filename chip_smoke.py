@@ -155,7 +155,21 @@ Phases, each of which raises on failure (nothing is caught):
    beside the plain version, the bound and one PyTorch call that
    computes the same function (SDPA; for gemma2's softcap, compiled
    flex_attention);
-10. the last line: {"ok": true, "device": {...}}.
+10. LM training (train): each of the ten reduced configs in f32, two
+   train steps (train.step.make_train_step) on the card against the CPU
+   from one seed-0 state and the same batches, loss, grad_norm, lr and
+   every parameter and moment leaf within 1e-4; granite-3-2b whole at its
+   published widths (TRAIN_FULL: the seed-0 f32 train state on the card,
+   bf16 compute, remat "nothing", one warm-up and three timed steps of
+   B x T tokens: tokens/s, step s, peak memory; loss finite, the step
+   counter at 4, the parameters moved); launch.train.main on the card on
+   the reduced config with checkpoints, an injected failure (exit 42) and
+   --resume, equal to an uninterrupted card run (bit for bit or within
+   rtol 1e-5, recorded), its checkpoint restored on the CPU equal to the
+   card's restore; the launch counters set to 0 before and read after each
+   part (training launches no kernel); and flash_attention and
+   linear_scan refusing card tensors that require grad;
+11. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is present.  Writes
 the full record to DIR/chip_smoke.json (default build/chip_smoke/).
@@ -913,6 +927,10 @@ OUR_KERNELS = ("maxmin_solve_kernel", "fill_plan_kernel", "fill_round_kernel",
                "linear_scan_kernel")
 
 
+# the per-name dicts of a profiled() summary, kept in the record, not printed
+PROFILE_BULK = ("aten_ops", "device_kernels", "device_kernel_ms")
+
+
 def profiled(fn) -> tuple:
     """Run ``fn`` under torch.profiler; returns its result and a summary:
     wall, device busy and idle share, kernel launches, host reads, the
@@ -970,6 +988,7 @@ def profiled(fn) -> tuple:
         # inclusive host time by op name (an op's children count again)
         top_host_ms=top(host_n, host_ms, 10),
         top_device_ms=top(dev_n, dev_ms, 8),
+        device_kernel_ms=dict(dev_ms),
         aten_ops={k: n for k, n in host_n.items() if k.startswith("aten::")},
         device_kernels=dict(dev_n),
         summary_s=time.perf_counter() - t1)
@@ -1023,7 +1042,7 @@ def profile_phase(n_tasks: int, n_above: int, n_batched: int) -> dict:
                          host_reads_per_pass=prof["host_reads"] / passes)
         print(json.dumps({f"profile_{name}": {
             k: v for k, v in out[name].items()
-            if k not in ("aten_ops", "device_kernels")}}))
+            if k not in PROFILE_BULK}}))
     a, b = out["full_width"], out["full_width_dense"]
     assert a["events"] == b["events"], (a["events"], b["events"])
     assert out["streaming_full_width"]["events"] == b["events"], (
@@ -2014,7 +2033,7 @@ def sharing_fig12(device: str = "cuda") -> dict:
 def _per_pass(prof: dict, passes: int) -> dict:
     """A profiled run's summary with its launches and reads a pass."""
     keep = {k: v for k, v in prof.items()
-            if k not in ("aten_ops", "device_kernels")}
+            if k not in PROFILE_BULK}
     return dict(keep, passes=passes,
                 kernel_launches_per_pass=prof["kernel_launches"] / passes,
                 host_reads_per_pass=prof["host_reads"] / passes)
@@ -2554,7 +2573,7 @@ def lm_phase(dev) -> dict:
     out["lm_profile"] = dict(forward=prof_f, serve=prof_s)
     print(json.dumps({"lm_profile": {
         k: {x: y for x, y in v.items()
-            if x not in ("aten_ops", "device_kernels")}
+            if x not in PROFILE_BULK}
         for k, v in out["lm_profile"].items()}}))
 
     # ---- lm_kernel_vs_plain: first 8 layers, pallas against chunked ------
@@ -3093,6 +3112,285 @@ def family_flash_rows(dev) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The train phase (slice 10): LM training on the card
+# ---------------------------------------------------------------------------
+
+# the reduced configs' steps, as tests/test_torch_train_step*.py run them
+TRAIN_STEP_KW = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10,
+                     xent_chunk=16)
+TRAIN_CROSS_STEPS = 2
+TRAIN_TOL = 1e-4           # reduced config in f32, card vs CPU, every leaf
+# granite-3-2b whole at its published widths, bf16 compute, f32 state,
+# remat "nothing": 2.53 B parameters, 40.5 GB of parameters, gradients and
+# moments.  B x T: the largest batch of 2048-token sequences that fits
+# (PERF.md section 4); one more step after the timed ones runs under
+# torch.profiler
+TRAIN_FULL = dict(arch="granite-3-2b", B=16, T=2048, steps=4,
+                  xent_chunk=512)
+TRAIN_LAUNCH = dict(arch="granite-3-2b", steps=8, fail_at=5)
+TRAIN_RESUME_RTOL = 1e-5   # resume on the card, where bit equality fails
+
+
+def _state_leaves(state) -> list:
+    from repro_torch.models import common as cm
+    return cm.leaves(state)
+
+
+def _states_close(name, got, want, tol) -> float:
+    """Every leaf of two train states (any devices) within rtol = atol =
+    ``tol``; returns the largest absolute difference."""
+    err = 0.0
+    pairs_w = dict(_state_leaves(want))
+    pairs_g = _state_leaves(got)
+    assert [p for p, _ in pairs_g] == list(pairs_w), name
+    for path, g in pairs_g:
+        g = g.detach().cpu()
+        w = pairs_w[path].detach().cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, path)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol, atol=tol,
+                                   err_msg=f"{name} {'/'.join(path)}")
+        err = max(err, max_abs_err(g.numpy(), w.numpy()))
+    return err
+
+
+def _states_equal(got, want) -> bool:
+    return all(torch.equal(g.cpu(), w.cpu()) for (_, g), (_, w) in zip(
+        _state_leaves(got), _state_leaves(want)))
+
+
+def train_cross_check(arch: str, dev) -> dict:
+    """TRAIN_CROSS_STEPS train steps of the reduced config in f32 on the
+    card and on the CPU, from one seed-0 state and the same batches (B = 2,
+    T = 24): loss, grad_norm and lr each step, and every parameter and
+    moment leaf after each step, within TRAIN_TOL; no kernel launched."""
+    from repro_torch import configs, kernels
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.train import step as step_mod
+
+    cfg = configs.get_reduced(arch)
+    assert cfg.attn_impl == "chunked" and cfg.compute_dtype == "float32"
+    host = step_mod.init_state(cfg, 0, device="cpu")
+    card = cm.tree_map(lambda _, t: t.to(dev, copy=True), host)
+    step = step_mod.make_train_step(cfg, **TRAIN_STEP_KW)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=24, global_batch=2, seed=3)
+    rec = dict(metrics=[], max_abs_err=[])
+    kernels.reset_launch_counts()
+    for i in range(TRAIN_CROSS_STEPS):
+        batch = make_batch(dcfg, i, model_cfg=cfg)
+        card, mc = step(card, batch)
+        host, mh = step(host, batch)
+        for k in ("loss", "grad_norm", "lr", "tokens", "moe_lb", "moe_z",
+                  "moe_dropped"):
+            np.testing.assert_allclose(float(mc[k]), float(mh[k]),
+                                       rtol=TRAIN_TOL, atol=TRAIN_TOL,
+                                       err_msg=f"{arch} step {i} {k}")
+        assert int(card["opt"].step) == int(host["opt"].step) == i + 1
+        rec["metrics"].append({k: [float(mc[k]), float(mh[k])]
+                               for k in ("loss", "grad_norm", "lr")})
+        rec["max_abs_err"].append(_states_close(f"{arch} step {i}", card,
+                                                host, TRAIN_TOL))
+    rec["launches"] = kernels.launch_counts()
+    assert not any(rec["launches"].values()), (arch, rec["launches"])
+    return rec
+
+
+def train_full_width(dev) -> dict:
+    """One architecture whole at its published widths (TRAIN_FULL): the
+    seed-0 f32 train state on the card, bf16 compute, remat "nothing", one
+    warm-up step and ``steps - 1`` timed steps of B x T tokens, with the
+    launch counters set to 0 just before and read just after (training
+    launches neither flash_attention nor linear_scan).  The loss finite,
+    the step counter at ``steps``, the parameters moved."""
+    from repro_torch import configs, kernels
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.train import step as step_mod
+
+    spec = TRAIN_FULL
+    cfg = configs.get(spec["arch"], remat=True, remat_policy="nothing")
+    assert cfg.attn_impl == "chunked" and cfg.compute_dtype == "bfloat16"
+    B, T = spec["B"], spec["T"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = step_mod.init_state(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    rec = dict(arch=cfg.name, B=B, T=T, layers=cfg.n_layers,
+               compute_dtype=cfg.compute_dtype, remat=cfg.remat_policy,
+               init_s=time.perf_counter() - t0)
+    leaves = [t for _, t in cm.leaves(state["params"])]
+    rec["params"] = sum(t.numel() for t in leaves)
+    rec["state_bytes"] = sum(t.nbytes for _, t in cm.leaves(state))
+    probe = {path: t.reshape(-1)[:4096].to("cpu", copy=True)
+             for path, t in cm.leaves(state["params"])}
+    del leaves
+    step = step_mod.make_train_step(cfg, peak_lr=3e-4, warmup_steps=2,
+                                    total_steps=100,
+                                    xent_chunk=spec["xent_chunk"])
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=T, global_batch=B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, losses, gnorms = [], [], []
+    for i in range(spec["steps"]):
+        batch = make_batch(dcfg, i, model_cfg=cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rec["launches"] = kernels.launch_counts()
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rec["step_walls_s"] = walls
+    rec["step_s"] = statistics.median(walls[1:])
+    rec["tokens_per_s"] = B * T / rec["step_s"]
+    # 6 N a token for the forward and backward, 2 N for the remat forward
+    rec["model_tflop_per_s"] = 8 * rec["params"] * B * T / rec[
+        "step_s"] / 1e12
+    rec["losses"], rec["grad_norms"] = losses, gnorms
+    rec["step_counter"] = int(state["opt"].step)
+    rec["params_moved"] = sum(
+        not torch.equal(t.reshape(-1)[:4096].cpu(), probe[path])
+        for path, t in cm.leaves(state["params"]))
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), rec
+    assert rec["step_counter"] == spec["steps"], rec
+    assert rec["params_moved"] == len(probe), rec
+    assert rec["launches"]["flash_attention"] == 0, rec["launches"]
+    assert rec["launches"]["linear_scan"] == 0, rec["launches"]
+    batch = make_batch(dcfg, spec["steps"], model_cfg=cfg)
+    _, prof = profiled(lambda: step(state, batch))
+    rec["profile"] = _train_profile(prof)
+    assert not rec["profile"]["our_kernels_count_ms"], rec["profile"]
+    del state, probe
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_profile(prof: dict) -> dict:
+    """A profiled train step's device time split into the f32 products
+    (the chunked attention's, on the CUDA cores), the bf16 products (the
+    weights', on the tensor cores) and the rest (elementwise, reductions,
+    copies)."""
+    split = {"f32_products": 0.0, "bf16_products": 0.0, "other": 0.0}
+    for name, ms in prof["device_kernel_ms"].items():
+        low = name.lower()
+        if "gemm" in low and "f32f32" in low:
+            split["f32_products"] += ms
+        elif "nvjet" in low or ("gemm" in low and "bf16" in low):
+            split["bf16_products"] += ms
+        else:
+            split["other"] += ms
+    keep = ("wall_s", "device_busy_s", "device_idle_share",
+            "kernel_launches", "host_reads", "top_device_ms",
+            "our_kernels_count_ms")
+    return dict({k: prof[k] for k in keep}, device_ms_by_class=split)
+
+
+def train_launcher(dev, out: pathlib.Path, spec: dict = TRAIN_LAUNCH) -> dict:
+    """``launch.train.main`` on the card, reduced config, with checkpoints:
+    an uninterrupted run; a run that stops at ``--fail-at`` (exit 42) and
+    its ``--resume``, whose final state equals the uninterrupted one (bit
+    for bit, else within TRAIN_RESUME_RTOL: recorded); the card's final
+    checkpoint restored on the CPU and on the card, equal."""
+    import shutil
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.ckpt import Checkpointer
+
+    base = out / "train_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def args(d, *more):
+        return ["--arch", spec["arch"], "--reduced", "--steps",
+                str(spec["steps"]), "--batch", "4", "--seq", "32",
+                "--ckpt-every", "2", "--log-every", "4", "--xent-chunk",
+                "16", "--ckpt-dir", str(base / d), "--device", str(dev),
+                *more]
+
+    kernels.reset_launch_counts()
+    rc = [train_mod.main(args("straight")),
+          train_mod.main(args("broken", "--fail-at", str(spec["fail_at"]))),
+          train_mod.main(args("broken", "--resume"))]
+    launches = kernels.launch_counts()
+    assert rc == [0, 42, 0], rc
+    assert not any(launches.values()), launches
+    cfg = configs.get_reduced(spec["arch"])
+    target = step_mod.init_state(cfg, 0, device="meta")
+    a, sa = Checkpointer(base / "straight").restore(target, device=dev)
+    b, sb = Checkpointer(base / "broken").restore(target, device=dev)
+    b_cpu, _ = Checkpointer(base / "broken").restore(target, device="cpu")
+    assert sa == sb == spec["steps"], (sa, sb)
+    assert _states_equal(b, b_cpu), "card and CPU restores differ"
+    bit_equal = _states_equal(a, b)
+    err = (0.0 if bit_equal else
+           _states_close("resume vs uninterrupted", b, a, TRAIN_RESUME_RTOL))
+    return dict(return_codes=rc, launches=launches, resume_bit_equal=bit_equal,
+                resume_max_abs_err=err, steps=spec["steps"],
+                fail_at=spec["fail_at"], cpu_restore_equal=True)
+
+
+def train_grad_guard(dev) -> dict:
+    """flash_attention and linear_scan refuse card tensors that require
+    grad (no backward), and launch under torch.no_grad()."""
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import ssm as kssm
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn((1, 128, h, 64), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (4, 2, 2))
+    a = torch.rand((2, 64, 256), generator=gen, device=dev)
+    x = torch.randn((2, 64, 256), generator=gen, device=dev)
+    out = {}
+    for name, fn, ins, i in (
+            ("flash_attention", kattn.flash_attention, [q, k, v], 0),
+            ("linear_scan", kssm.linear_scan, [a, x], 1)):
+        before = fn.launches
+        ins[i].requires_grad_(True)
+        try:
+            fn(*ins)
+        except RuntimeError as e:
+            assert "no backward" in str(e), e
+            raised = True
+        else:
+            raised = False
+        assert raised and fn.launches == before, name
+        with torch.no_grad():
+            fn(*ins)
+        assert fn.launches == before + 1, name
+        ins[i].requires_grad_(False)
+        out[name] = dict(raised=raised, launched_under_no_grad=True)
+    return out
+
+
+def train_phase(dev, out: pathlib.Path) -> dict:
+    """The train phase: (a) each reduced config's steps card vs CPU, (b) the
+    full-width cell, (c) the launcher's fail/resume on the card, (d) the
+    kernel wrappers' grad guard on card tensors."""
+    from repro_torch import configs
+
+    rec = {"cross_check": {}}
+    t0 = time.perf_counter()
+    for arch in configs.ARCHS:
+        rec["cross_check"][arch] = train_cross_check(arch, dev)
+    rec["cross_check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["train_full_width"] = train_full_width(dev)
+    rec["train_full_width"]["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"train_full_width": rec["train_full_width"]}))
+    t0 = time.perf_counter()
+    rec["launcher"] = train_launcher(dev, out)
+    rec["launcher"]["wall_s"] = time.perf_counter() - t0
+    rec["grad_guard"] = train_grad_guard(dev)
+    print(json.dumps({"train": {k: rec[k] for k in (
+        "cross_check_s", "launcher", "grad_guard")}}))
+    return rec
+
+
 def dense_cell_worker(root: str, n_tasks: int, n_profile: int) -> dict:
     """full_width_dense as the checkout at ``root`` runs it (its own
     ``repro_torch``, built into its own ``build/``): ``n_tasks`` tasks
@@ -3266,6 +3564,8 @@ def main() -> int:
     record["main_path"].update(timed("lm", lm_phase, dev))
     families, family_rows = timed("lm_families", lm_families_phase, dev)
     record["main_path"]["lm_families"] = families
+    record["main_path"]["train"] = timed("train", train_phase, dev,
+                                         pathlib.Path(args.out))
     record["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 

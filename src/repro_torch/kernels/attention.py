@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .maxmin import _route, _stream
+from .maxmin import _route, _stream, no_grad_through
 
 NEG = -1e30
 BQ, BK = 64, 32          # the f32 (CUDA-core) kernel's q and KV tile heights
@@ -155,7 +155,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     inputs the CUDA-core one (:func:`variant`); both count in
     ``flash_attention.launches``, the first also in ``.mma_launches``.
     ``visited``, an int32 CUDA tensor of ``B*Hq*ceil(Tq/bq)`` entries (the
-    variant's ``bq``), receives each block's count of visited KV tiles."""
+    variant's ``bq``), receives each block's count of visited KV tiles.
+
+    The kernel has no backward (nor has the reference's), so the wrapper
+    raises ``RuntimeError`` on either device when grad is enabled and an
+    input requires grad: train through ``attn_impl="chunked"``."""
+    no_grad_through("flash_attention", q, k, v)
     _check(q, k, v, causal, window)
     if not _route(q, "flash_attention"):
         return flash_attention_plain(

@@ -315,6 +315,18 @@ def _route(t: torch.Tensor, name: str) -> bool:
                      f"{t.device}")
 
 
+def no_grad_through(name: str, *tensors) -> None:
+    """Raise when grad is enabled and one of ``tensors`` (None skipped)
+    requires grad: the kernel ``name`` has no backward, and its output
+    would silently cut the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward and an input requires "
+            f"grad; train through the plain path (attn_impl=\"chunked\") "
+            f"or call it under torch.no_grad()")
+
+
 @functools.lru_cache(maxsize=None)
 def _thr_scale(rel_eps: float) -> float:
     """``1 + rel_eps`` rounded to f32, as the plain version's product

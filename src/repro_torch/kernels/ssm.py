@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from . import _build
-from .maxmin import _route, _stream
+from .maxmin import _route, _stream, no_grad_through
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -57,7 +57,11 @@ def linear_scan(a, x, h0=None):
     """(y, h_last) of the recurrence over axis 1 with an f32 carry.
 
     a, x: [B, T, D] in f32 or bf16 (each on its own); h0: [B, D] f32 or
-    None.  y has x's dtype, h_last is f32."""
+    None.  y has x's dtype, h_last is f32.  Raises ``RuntimeError`` on
+    either device when grad is enabled and an input requires grad (no
+    backward): train through ``attn_impl="chunked"``, which routes Mamba's
+    scan too."""
+    no_grad_through("linear_scan", a, x, h0)
     if not _route(x, "linear_scan"):
         return linear_scan_plain(a, x, h0)
     if x.dim() != 3 or a.shape != x.shape:

@@ -8,9 +8,10 @@
 enc-dec one (seamless) is refused by ``ServeEngine``, whose requests carry
 no source frames (the reference fails on it too).  Runs on the GPU unless
 ``--device cpu`` is given.  Reduced configs by default, ``--full`` for the
-published widths (weights random from ``--seed``).  Checkpoint loading
-(``--ckpt-dir``) belongs to the training stack, which is not ported
-(ROADMAP queue 1, item 14.5).
+published widths.  Weights are random from ``--seed``, or with
+``--ckpt-dir`` the parameters of the newest checkpoint there (a train
+state of ``repro_torch.launch.train`` or of the reference's), each leaf
+cast to its serving storage dtype (``common.storage_dtype``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch import configs
 from repro_torch.device import match_xla_matmul, resolve_device
 from repro_torch.models import lm
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train.ckpt import Checkpointer
 
 
 def main(argv=None) -> int:
@@ -40,14 +42,18 @@ def main(argv=None) -> int:
                     help="cpu to run the plain PyTorch path (default: GPU)")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
-                                  "(ROADMAP queue 1, item 14.5)")
     dev = resolve_device(args.device)
     match_xla_matmul()
     cfg = (configs.get(args.arch) if args.full
            else configs.get_reduced(args.arch))
-    params = lm.init_params(cfg, args.seed, device=dev)
+    if args.ckpt_dir:
+        # the serving tree's shapes and storage dtypes, filled from the file
+        target = {"params": lm.init_params(cfg, args.seed, device="meta")}
+        state, step = Checkpointer(args.ckpt_dir).restore(target, device=dev)
+        params = state["params"]
+        print(f"restored params from step {step}")
+    else:
+        params = lm.init_params(cfg, args.seed, device=dev)
     eng = ServeEngine(cfg, params, batch_size=args.batch,
                       max_len=args.max_len, eos_id=-1,
                       temperature=args.temperature, seed=args.seed,

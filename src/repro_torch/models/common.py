@@ -67,10 +67,14 @@ def spec(shape, axes, init="fan_in", scale=1.0, fan_in=None) -> ParamSpec:
 
 
 def tree_map(fn, tree, prefix=()):
-    """``fn(path, leaf)`` over a tree of dicts and lists; keeps the nesting.
-    Dict keys are visited in sorted order."""
+    """``fn(path, leaf)`` over a tree of dicts, lists and named tuples; keeps
+    the nesting.  Dict keys are visited in sorted order, a named tuple's
+    fields in their order (each under its name, as in a JAX key path)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], prefix + (k,)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, getattr(tree, k), prefix + (k,))
+                            for k in tree._fields))
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, prefix + (str(i),))
                 for i, v in enumerate(tree)]
@@ -99,6 +103,15 @@ def storage_dtype(path, compute_dtype) -> torch.dtype:
     """The dtype a parameter at ``path`` is kept in (module docstring)."""
     return (torch_dtype(compute_dtype) if path and path[-1] in CAST_AT_USE
             else torch.float32)
+
+
+def seeded_generator(seed: int, device) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed``; ``None`` on the
+    ``meta`` device, whose tensors draw nothing."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def _init_leaf(ps: ParamSpec, dtype, device, generator):

@@ -24,12 +24,18 @@ replaces them).
 On the card, :func:`forward_hidden` (hence :func:`forward`) and the cache
 path set :func:`repro_torch.device.match_xla_matmul` on each call, so that
 bf16 and f32 products accumulate in f32 as XLA's do.
+
+Training (:mod:`repro_torch.train.step`) differentiates
+:func:`forward_hidden`; with grad enabled :func:`apply_stack` honours
+``cfg.remat`` (see there).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..device import match_xla_matmul_on
 from . import common as cm
@@ -268,11 +274,11 @@ def lm_spec(cfg: ModelConfig) -> dict:
 
 def init_params(cfg: ModelConfig, seed: int, *, device=None):
     """Random parameters of ``cfg`` from ``seed``, made on ``device`` (the
-    GPU by default) at their storage dtypes (``common.storage_dtype``)."""
+    GPU by default) at their storage dtypes (``common.storage_dtype``).
+    On the ``meta`` device: the tree's shapes and dtypes, no storage."""
     dev = cm.resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return cm.materialize(lm_spec(cfg), gen, device=dev,
-                          compute_dtype=cfg.compute_dtype)
+    return cm.materialize(lm_spec(cfg), cm.seeded_generator(seed, dev),
+                          device=dev, compute_dtype=cfg.compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -412,13 +418,23 @@ def apply_stack(cfg: ModelConfig, blocks, x, positions, *, role="decoder",
                 enc_out=None, enc_kv_cached=False):
     """Every layer of the ``role`` stack in order (repeat-major); returns
     (x, aux3).  A cross layer attends to the ``xk`` / ``xv`` of its cache
-    when ``enc_kv_cached``, else to the projection of ``enc_out``."""
+    when ``enc_kv_cached``, else to the projection of ``enc_out``.
+
+    The stacked leaves are split once with ``unbind`` (views, as indexing;
+    under autograd its backward stacks the repeats' gradients in one copy,
+    where indexing each repeat would add a zero-filled full-size tensor a
+    repeat).  When autograd records the stack (grad enabled, no caches,
+    and the input or a parameter requires grad: training), each repeat of
+    the pattern runs under :func:`torch.utils.checkpoint.checkpoint` when
+    ``cfg.remat`` (the reference's ``jax.checkpoint`` of its scan body, at
+    ``cfg.remat_policy``)."""
     pattern, repeats = find_pattern(layer_kinds(cfg, role=role,
                                                 n_layers=n_layers))
-    aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
-    for r in range(repeats):
+    split = [{path: t.unbind(0) for path, t in cm.leaves(b)} for b in blocks]
+
+    def repeat(r, x, aux):
         for j, ls in enumerate(pattern):
-            p = _at(blocks[j], r)
+            p = cm.tree_map(lambda path, _: split[j][path][r], blocks[j])
             cache = None if caches is None else _at(caches[j], r)
             enc_kv = None
             if ls.cross:
@@ -430,7 +446,48 @@ def apply_stack(cfg: ModelConfig, blocks, x, positions, *, role="decoder",
                                index=index, prefix_len=prefix_len,
                                enc_kv=enc_kv)
             aux = aux + a
+        return x, aux
+
+    training = caches is None and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for b in blocks
+                               for _, t in cm.leaves(b)))
+    if training and cfg.remat:
+        repeat = _rematted(repeat, cfg.remat_policy)
+    aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
+    for r in range(repeats):
+        x, aux = repeat(r, x, aux)
     return x, aux
+
+
+# the products whose outputs the "dots" policy saves: those without batch
+# dimensions, as the reference's dots_with_no_batch_dims_saveable.  einsum
+# lowers such a product (a projection) to bmm over a batch of one, and a
+# batched one (the chunked attention's f32 scores) to bmm over B x heads,
+# so a bmm counts when its batch is 1 (also a batched product whose batch
+# dimensions all have size 1, which the reference would not save)
+_MM = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+_LHS = {torch.ops.aten.bmm.default: 0, torch.ops.aten.baddbmm.default: 1}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    unbatched = op in _MM or (op in _LHS and args[_LHS[op]].shape[0] == 1)
+    return (ckpt.CheckpointPolicy.MUST_SAVE if unbatched
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematted(fn, policy: str):
+    """``fn`` under non-reentrant activation checkpointing: ``"nothing"``
+    saves nothing inside it, ``"dots"`` saves the outputs of the products
+    without batch dimensions."""
+    if policy == "nothing":
+        kw = {}
+    elif policy == "dots":
+        kw = {"context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"remat_policy {policy!r}: the port, as the "
+                         f"reference, knows 'nothing' and 'dots'")
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
