@@ -169,7 +169,20 @@ Phases, each of which raises on failure (nothing is caught):
    card's restore; the launch counters set to 0 before and read after each
    part (training launches no kernel); and flash_attention and
    linear_scan refusing card tensors that require grad;
-11. the last line: {"ok": true, "device": {...}}.
+11. the fleet (fleet): every LM architecture at decode_32k and long_500k
+   through launch.dryrun on meta tensors in a pool of 8 spawned processes
+   (prefill_32k and train_4k cut: minutes a cell), their records read by
+   sched.energy_aware.load_cells with the H100 record, a job mix of 24 jobs
+   (default_job_mix and job_trace, seed 2, arrivals over 3600 s), and
+   evaluate_schedulers over the 15 (vm_sched, pm_sched) lanes on 8 nodes,
+   on the card (the launch counters set to 0 just before and read just
+   after: the solve and the masked min must launch) and on the CPU, the
+   rows equal (integers exactly, floats within rtol 1e-5 / atol 1e-6),
+   with the wall and aggregate events/s; granite-3-2b prefill at B = 1,
+   T = 4096 counted by launch.op_cost on real card tensors and on meta
+   tensors, product and pointwise FLOPs equal (the meta peak beside
+   max_memory_allocated, recorded); the card's idle power draw;
+12. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is present.  Writes
 the full record to DIR/chip_smoke.json (default build/chip_smoke/).
@@ -3391,6 +3404,188 @@ def train_phase(dev, out: pathlib.Path) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The fleet phase (slice 11): the dry run on meta tensors, the energy-aware
+# fleet's scheduler matrix on the card
+# ---------------------------------------------------------------------------
+
+# The dry run's cells here: every arch at decode_32k and long_500k (the
+# full-attention archs skip it).  prefill_32k and train_4k take minutes a
+# cell on meta tensors (a chunked-attention step of 32,768 positions runs
+# ~5 M aten ops), so they are cut (PERF.md section 4).
+FLEET_SHAPES = ("decode_32k", "long_500k")
+FLEET_WORKERS = 8
+FLEET_JOBS = dict(n_jobs=24, seed=2, arrival_spread_s=3600.0, n_pods=8)
+# the cell counted on real card tensors and on meta tensors
+FLEET_COUNT = dict(arch="granite-3-2b", batch=1, seq=4096)
+
+
+def _fleet_cell_worker(job) -> dict:
+    """One published cell through ``launch.dryrun.run_cell`` (meta
+    tensors, no device), its record written under ``out``."""
+    arch, shape_name, out = job
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, shape_name)
+    pathlib.Path(out, f"{arch}_{shape_name}_1x1.json").write_text(
+        json.dumps(rec, indent=1))
+    return {k: rec.get(k) for k in ("arch", "shape", "ok", "skipped",
+                                    "run_s", "error")}
+
+
+def _fleet_jobs(out: pathlib.Path, shapes=FLEET_SHAPES) -> list:
+    """The dry run's cells (every arch at ``shapes``), their records to go
+    under ``out`` (emptied first)."""
+    from repro_torch import configs
+
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("*.json"):
+        old.unlink()
+    return [(a, s, str(out)) for s in shapes for a in configs.ARCHS]
+
+
+def _rows_close(name: str, got: list, want: list):
+    """Scheduler rows: labels and integers exact, floats within RTOL /
+    ATOL."""
+    assert len(got) == len(want), (name, len(got), len(want))
+    for g, w in zip(got, want):
+        assert set(g) == set(w), (name, set(g) ^ set(w))
+        for k, v in w.items():
+            if isinstance(v, float):
+                np.testing.assert_allclose(
+                    g[k], v, rtol=RTOL, atol=ATOL,
+                    err_msg=f"{name} {w['vm_sched']}/{w['pm_sched']} {k}")
+            else:
+                assert g[k] == v, (name, k, g[k], v)
+
+
+def fleet_count_both_ways(dev, spec: dict = FLEET_COUNT) -> dict:
+    """One published cell (granite-3-2b prefill, B x T) counted by
+    launch.op_cost on real card tensors (random, of the meta arguments'
+    shapes and dtypes) and on meta tensors: product and pointwise FLOPs
+    must be equal; the meta peak beside the card's
+    max_memory_allocated above the arguments (recorded, not asserted)."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch.mesh import host_mesh
+
+    cfg = configs.get(spec["arch"])
+    shape = ShapeCell("fleet_count", "prefill", spec["seq"], spec["batch"])
+    fn, args, _ = dryrun.build_cell(cfg, shape, host_mesh())
+    t0 = time.perf_counter()
+    _, meta = op_cost.count(fn, *args)
+    meta_s = time.perf_counter() - t0
+    real = dryrun.materialize(args, dev, vocab=cfg.vocab, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, card_count = op_cost.count(fn, *real)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    logits = out[0]
+    assert logits.shape == (spec["batch"], cfg.vocab), logits.shape
+    a, b = meta.summary(), card_count.summary()
+    rec = dict(spec, meta=a, card={k: b[k] for k in (
+        "dot_flops", "elem_flops", "bytes_accessed", "n_ops", "peak_bytes")},
+        meta_s=meta_s, card_s=card_s, card_max_memory_allocated=peak,
+        meta_peak_bytes=a["peak_bytes"])
+    del out, real, card_count
+    torch.cuda.empty_cache()
+    for k in ("dot_flops", "elem_flops"):
+        assert a[k] == b[k], ("fleet: card and meta counts differ", k,
+                              a[k], b[k])
+    return rec
+
+
+def idle_draw_w(samples: int = 5) -> dict:
+    """The card's power draw with no work queued: nvidia-smi's power.draw
+    after the queue drained and a second's rest, ``samples`` readings
+    0.2 s apart, and their median."""
+    torch.cuda.synchronize()
+    time.sleep(1.0)
+    draws = []
+    for _ in range(samples):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.strip().splitlines()[0]
+        draws.append(float(smi))
+        time.sleep(0.2)
+    return dict(samples_w=draws, median_w=statistics.median(draws))
+
+
+def fleet_phase(dev, out: pathlib.Path) -> dict:
+    """The fleet phase: (a) the dry run of FLEET_SHAPES on meta tensors in
+    a pool of FLEET_WORKERS spawned processes (closed before it returns),
+    every record ok; meanwhile on the card (b) one published cell counted
+    on card and meta tensors and (c) the card's idle draw beside the H100
+    record's; then (d) load_cells with the H100 record, default_job_mix and
+    job_trace, and (e) evaluate_schedulers over the 15 policy pairs on the
+    card (launch counters set to 0 just before and read just after; the
+    solve and the masked min must launch) and on the CPU, rows equal
+    within tolerance."""
+    import multiprocessing
+
+    from repro_torch.sched import energy_aware as ea
+
+    dry_dir = out / "fleet_dryrun"
+    jobs = _fleet_jobs(dry_dir)
+    rec = {}
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(
+            min(FLEET_WORKERS, len(jobs))) as pool:
+        pending = pool.map_async(_fleet_cell_worker, jobs)
+        # the card's part runs while the pool counts (the workers use no
+        # device)
+        rec["count_both_ways"] = fleet_count_both_ways(dev)
+        rec["idle_draw"] = dict(idle_draw_w(),
+                                h100_record_idle_w=ea.H100.idle_w)
+        dry = pending.get()
+    rec["dry_run"] = dict(wall_s=time.perf_counter() - t0, cells=dry,
+                          counted=sum(not c["skipped"] for c in dry))
+    failed = [c for c in dry if not c["ok"]]
+    assert not failed, ("fleet: dry-run cells failed", failed)
+
+    cells = ea.load_cells(dry_dir, chip=ea.H100)
+    assert len(cells) == rec["dry_run"]["counted"], sorted(cells)
+    rec["cells"] = {f"{a}/{s}": dict(dataclasses.asdict(c), step_s=c.step_s,
+                                     bottleneck=c.bottleneck,
+                                     utilisation=c.utilisation)
+                    for (a, s), c in sorted(cells.items())}
+    mix = ea.default_job_mix(cells, n_jobs=FLEET_JOBS["n_jobs"],
+                             seed=FLEET_JOBS["seed"])
+    trace = ea.job_trace(mix, cells,
+                         arrival_spread_s=FLEET_JOBS["arrival_spread_s"],
+                         seed=FLEET_JOBS["seed"])
+    n_pods = FLEET_JOBS["n_pods"]
+    rows, wall, launches = _counted(
+        lambda: ea.evaluate_schedulers(trace, n_pods=n_pods), "cuda")
+    cpu_rows, cpu_wall = timed_call(
+        lambda: ea.evaluate_schedulers(trace, n_pods=n_pods,
+                                       devices=["cpu"]), "cpu")
+    _rows_close("fleet card vs cpu", rows, cpu_rows)
+    assert launches["maxmin_solve"] > 0 and launches["masked_min"] > 0, (
+        "fleet: the matrix launched no solve or masked min", launches)
+    events = sum(r["events"] for r in rows)
+    rec["matrix"] = dict(
+        jobs=[dataclasses.astuple(j) for j in mix], tasks=int(trace.n),
+        n_pods=n_pods, rows=rows, wall_s=wall, cpu_wall_s=cpu_wall,
+        events=events, aggregate_events_per_s=events / wall,
+        launches=launches)
+    print(json.dumps({"fleet": {
+        "dry_run_wall_s": rec["dry_run"]["wall_s"],
+        "matrix": {k: rec["matrix"][k] for k in (
+            "tasks", "wall_s", "cpu_wall_s", "events",
+            "aggregate_events_per_s", "launches")},
+        "count_both_ways": {k: rec["count_both_ways"][k] for k in (
+            "meta_s", "card_s", "meta_peak_bytes",
+            "card_max_memory_allocated")},
+        "idle_draw": rec["idle_draw"]}}))
+    return rec
+
+
 def dense_cell_worker(root: str, n_tasks: int, n_profile: int) -> dict:
     """full_width_dense as the checkout at ``root`` runs it (its own
     ``repro_torch``, built into its own ``build/``): ``n_tasks`` tasks
@@ -3566,6 +3761,8 @@ def main() -> int:
     record["main_path"]["lm_families"] = families
     record["main_path"]["train"] = timed("train", train_phase, dev,
                                          pathlib.Path(args.out))
+    record["main_path"]["fleet"] = timed("fleet", fleet_phase, dev,
+                                         pathlib.Path(args.out))
     record["phase_s"] = phase_s
     print(json.dumps({"phase_s": phase_s}))
 
@@ -3628,6 +3825,9 @@ def main() -> int:
                 c: record["main_path"][c]["launches"][counter]
                 for c in ("streaming_full_width", "streaming_batched")
                 if counter in ("maxmin_solve", "masked_min")},
+            **({"fleet_launches": record["main_path"]["fleet"]["matrix"][
+                "launches"][counter]} if name in (
+                    "maxmin_solve_lanes", "masked_min_lanes") else {}),
             sharing_launches={
                 c: {k: launches[k] for k in (
                     ("fill_stats", "fill_plan") if counter == "fill_stats"

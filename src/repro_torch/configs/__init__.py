@@ -14,6 +14,7 @@ from repro_torch.models.lm import ModelConfig
 from . import (codeqwen1_5_7b, command_r_35b, gemma2_27b, granite_3_2b,
                granite_moe_1b_a400m, jamba_v0_1_52b, paligemma_3b,
                phi3_5_moe_42b, rwkv6_3b, seamless_m4t_large_v2)
+from .shapes import SHAPES, ShapeCell, input_specs, skip_reason
 
 _MODULES = [
     jamba_v0_1_52b, gemma2_27b, command_r_35b, granite_3_2b, codeqwen1_5_7b,
@@ -41,4 +42,5 @@ def get_reduced(arch: str, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-__all__ = ["ARCHS", "get", "get_reduced"]
+__all__ = ["ARCHS", "SHAPES", "ShapeCell", "get", "get_reduced",
+           "input_specs", "skip_reason"]

@@ -11,9 +11,6 @@ simulate_batch` call (split over devices by :mod:`.shard`):
 * :mod:`~repro_torch.experiments.tournament`: VM x PM scheduler grids;
 * :mod:`~repro_torch.experiments.shard`: the lane split underneath all
   three, and the streamed batch (``shard.simulate_stream_batch``).
-
-``ensemble.job_mix_ensemble`` waits for ``sched.energy_aware`` (ROADMAP
-item 12).
 """
 from . import ensemble, pareto, shard, tournament
 from .ensemble import EnsembleResult, gwa_ensemble, run_ensemble

@@ -1,9 +1,10 @@
 """Trace ensembles: the same policy grid across many seeded workloads
 (port of ``repro.experiments.ensemble``).
 
-Seed-perturbed trace replicates crossed with a list of parameter points
-run as one batch through :func:`repro_torch.experiments.shard.run_batch`;
-the meter-stack readings reduce to ``mean / std / ci`` a point.
+Seed-perturbed trace replicates (GWA-moment families or the fleet job mix)
+crossed with a list of parameter points run as one batch through
+:func:`repro_torch.experiments.shard.run_batch`; the meter-stack readings
+reduce to ``mean / std / ci`` a point.
 """
 from __future__ import annotations
 
@@ -31,15 +32,17 @@ def gwa_ensemble(family: str, n_tasks: int, replicates: int, *,
 
 
 def job_mix_ensemble(cells: dict, replicates: int, *, n_jobs: int = 24,
-                     arrival_spread_s: float = 1800.0, seed0: int = 0
-                     ) -> list[engine.Trace]:
-    """Seed-perturbed fleet job mixes: not ported.  The reference draws
-    them from ``repro.sched.energy_aware``, which reads the LM dry-run
-    records of ROADMAP item 14.7."""
-    raise NotImplementedError(
-        "job_mix_ensemble needs sched.energy_aware, which is not ported to "
-        "repro_torch yet (ROADMAP queue 1, item 12; it waits for the LM dry "
-        "run of item 14.7)")
+                     arrival_spread_s: float = 1800.0, seed0: int = 0,
+                     chip=None) -> list[engine.Trace]:
+    """Seed-perturbed fleet job mixes (the
+    :func:`repro_torch.sched.energy_aware.default_job_mix` workload) on
+    nodes of ``chip`` (default ``energy_aware.H100``)."""
+    from ..sched import energy_aware as ea
+    return [ea.job_trace(ea.default_job_mix(cells, n_jobs=n_jobs,
+                                            seed=seed0 + r),
+                         cells, arrival_spread_s=arrival_spread_s,
+                         seed=seed0 + r, chip=chip or ea.H100)
+            for r in range(replicates)]
 
 
 def _metric_table(spec: engine.CloudSpec, res: engine.CloudResult,

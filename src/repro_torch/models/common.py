@@ -2,10 +2,12 @@
 ``repro/models/common.py``).
 
 Model code builds a tree of :class:`ParamSpec` leaves (shape + logical axes +
-initializer); :func:`materialize` turns it into tensors on a device.  The
-tree keeps the reference's nesting, so :func:`params_from_numpy` can take the
-JAX package's materialised parameters as numpy arrays and :func:`to_numpy`
-gives them back.
+initializer); :func:`materialize` turns it into tensors on a device,
+:func:`abstract` into ``meta`` tensors (the dry run) and
+:func:`logical_axes` into the axes that ``repro_torch.dist.sharding`` maps
+onto a mesh.  The tree keeps the reference's nesting, so
+:func:`params_from_numpy` can take the JAX package's materialised
+parameters as numpy arrays and :func:`to_numpy` gives them back.
 
 Storage dtype.  The reference keeps every parameter in f32 and casts at use.
 The port stores in the compute dtype each leaf that the reference only ever
@@ -66,6 +68,10 @@ def spec(shape, axes, init="fan_in", scale=1.0, fan_in=None) -> ParamSpec:
                      fan_in)
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def tree_map(fn, tree, prefix=()):
     """``fn(path, leaf)`` over a tree of dicts, lists and named tuples; keeps
     the nesting.  Dict keys are visited in sorted order, a named tuple's
@@ -90,6 +96,19 @@ def leaves(tree) -> list:
 
 def count_params(tree) -> int:
     return sum(math.prod(ps.shape) for _, ps in leaves(tree))
+
+
+def abstract(tree, dtype=torch.float32):
+    """The spec tree as ``meta`` tensors of ``dtype`` (shapes and dtypes, no
+    storage): the dry run's parameters."""
+    dt = torch_dtype(dtype)
+    return tree_map(
+        lambda _, ps: torch.empty(ps.shape, dtype=dt, device="meta"), tree)
+
+
+def logical_axes(tree):
+    """Same-structure tree of logical-axes tuples."""
+    return tree_map(lambda _, ps: ps.axes, tree)
 
 
 def stack_specs(tree, n: int, axis_name: str = "layers"):

@@ -642,6 +642,33 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
             "index": 0}
 
 
+_CACHE_AXES = {
+    "k": ("batch", "cache_seq", "kv_heads", "head"),
+    "v": ("batch", "cache_seq", "kv_heads", "head"),
+    "xk": ("batch", "cache_seq", "kv_heads", "head"),
+    "xv": ("batch", "cache_seq", "kv_heads", "head"),
+    "conv": ("batch", None, "mlp"),
+    "ssm": ("batch", "mlp"),
+    "tm_shift": ("batch", None, "embed"),
+    "tm_state": ("batch", "heads_flat"),
+    "cm_shift": ("batch", None, "embed"),
+}
+
+
+def cache_axes(cfg: ModelConfig, batch: int, max_len: int, *,
+               enc_len: int = 0):
+    """Logical sharding axes matching :func:`cache_struct` leaf for leaf
+    (each layer leaf led by ``"layers"``; ``index`` has none)."""
+    struct = cache_struct(cfg, batch, max_len, enc_len=enc_len)
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return ("layers",) + _CACHE_AXES[name]
+
+    return {"layers": [walk(c) for c in struct["layers"]], "index": ()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                enc_len: int = 0, device=None):
     dev = cm.resolve_device(device)

@@ -125,6 +125,23 @@ def init_state(cfg, seed: int, *, use_compression: bool = False,
     return state
 
 
+def abstract_state(cfg, *, use_compression: bool = False) -> dict:
+    """The train state as ``meta`` tensors (the dry run: no storage), in
+    the reference's dtypes: f32 parameters, moments and error buffer, an
+    int32 step."""
+    return init_state(cfg, 0, use_compression=use_compression,
+                      device="meta")
+
+
+def state_axes(cfg, *, use_compression: bool = False) -> dict:
+    """Logical axes for every train-state leaf (mirrors abstract_state)."""
+    axes = cm.logical_axes(lm.lm_spec(cfg))
+    state = {"params": axes, "opt": adamw.AdamWState((), axes, axes)}
+    if use_compression:
+        state["err"] = axes
+    return state
+
+
 def make_train_step(cfg, *, accum: int = 1, peak_lr: float = 3e-4,
                     warmup_steps: int = 100, total_steps: int = 10_000,
                     weight_decay: float = 0.1, max_grad_norm: float = 1.0,

@@ -225,7 +225,12 @@ def test_ensemble_rows_match_reference():
     with pytest.raises(ValueError, match="confidence"):
         tens.run_ensemble(spec, traces, [base], confidence=0.5,
                           devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # no cell to draw the fleet's jobs from: numpy's randint(0) refuses,
+    # as in the reference (tests/test_torch_energy_aware.py holds the
+    # mixes bit-equal)
+    with pytest.raises(ValueError):
+        jens.job_mix_ensemble({}, 2)
+    with pytest.raises(ValueError):
         tens.job_mix_ensemble({}, 2)
 
 

@@ -41,6 +41,10 @@ def test_port_imports_neither_jax_nor_reference():
             PORT / "experiments" / "tournament.py",
             PORT / "core" / "sharing.py", PORT / "core" / "network.py",
             PORT / "core" / "cloud.py", PORT / "models" / "rwkv.py",
+            PORT / "configs" / "shapes.py", PORT / "dist" / "sharding.py",
+            PORT / "dist" / "pipeline.py", PORT / "launch" / "mesh.py",
+            PORT / "launch" / "op_cost.py", PORT / "launch" / "dryrun.py",
+            PORT / "sched" / "energy_aware.py",
             *(PORT / "configs" / f"{name}.py" for name in (
                 "gemma2_27b", "command_r_35b", "granite_3_2b",
                 "codeqwen1_5_7b", "granite_moe_1b_a400m", "phi3_5_moe_42b",
@@ -175,6 +179,48 @@ def test_sharing_network_and_cloud_run_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_dryrun_and_fleet_run_with_jax_blocked(tmp_path):
+    """The dry run (a published config's cell on meta tensors, through the
+    CLI), the sharding rules, gpipe and the energy-aware fleet (load_cells
+    on the records just written, a job mix, two policy pairs on the CPU)
+    run with every import of JAX or the reference refused."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None      # any import of them now fails\n"
+        "import torch\n"
+        "from repro_torch.dist import pipeline, sharding\n"
+        "from repro_torch.launch import dryrun, mesh\n"
+        "from repro_torch.sched import energy_aware as ea\n"
+        f"out = {str(tmp_path)!r}\n"
+        "assert dryrun.main(['--arch', 'rwkv6-3b,jamba-v0.1-52b',\n"
+        "                    '--shape', 'decode_32k', '--out', out]) == 0\n"
+        "cells = ea.load_cells(out)\n"
+        "assert len(cells) == 2, cells\n"
+        "tr = ea.job_trace(ea.default_job_mix(cells, n_jobs=6, seed=2),\n"
+        "                  cells, arrival_spread_s=60.0, seed=2)\n"
+        "rows = ea.evaluate_schedulers(tr, n_pods=2,\n"
+        "                              schedulers=[(0, 0), (0, 1)],\n"
+        "                              devices=['cpu'])\n"
+        "assert [r['jobs_done'] for r in rows] == [6, 6], rows\n"
+        "m = mesh.make_mesh((2, 4), ('data', 'model'))\n"
+        "assert sharding.pspec_for(('embed', 'mlp'), (64, 64), m,\n"
+        "                          sharding.TRAIN_RULES) == ('data', 'model')\n"
+        "run = pipeline.gpipe(lambda p, x: x @ p['w'], None, 's', 2)\n"
+        "y = run({'w': torch.eye(3).expand(2, 3, 3)}, torch.ones(4, 1, 3))\n"
+        "assert torch.equal(y, torch.ones(4, 1, 3))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_batch_entry_points_need_a_card_or_cpu():
