@@ -169,9 +169,24 @@ Phases, each of which raises on failure (nothing is caught):
    card's restore; the launch counters set to 0 before and read after each
    part (training launches no kernel); and flash_attention and
    linear_scan refusing card tensors that require grad;
-11. the fleet (fleet): every LM architecture at decode_32k and long_500k
-   through launch.dryrun on meta tensors in a pool of 8 spawned processes
-   (prefill_32k and train_4k cut: minutes a cell), their records read by
+11. the mesh (mesh): one NCCL rank a visible card (at most 4, each a
+   spawned process; the count printed first) runs launch.train.build on
+   granite-3-2b at its published widths cut to 2 layers (MESH_TRAIN), an
+   n x 1 mesh, B = 4, T = 2048, two steps with the launch counters set to
+   0 just before and read just after (none launch), peak memory recorded;
+   the losses within rtol 1e-5 of the plain one-device step on the card
+   from the same state and batches, and every parameter leaf's update
+   within 5e-2 of the plain step's (in norm); only ops of FALLBACK_OPS run
+   replicated for want of a DTensor strategy; gpipe over the ranks (on
+   one card, a stage on one rank: the in-order path) against sequential
+   application within 2e-5; the checkpoint the card's mesh wrote restored
+   by four gloo ranks of the CPU onto a 2x2 mesh, each rank's shard of
+   every leaf bit-equal to its slice of the file;
+12. the fleet (fleet): every LM architecture at decode_32k and long_500k
+   through launch.dryrun on meta tensors, on one device and on the 16x16
+   production mesh (one rank of a fake group of 256: per-device counts
+   and collective bytes), in a pool of 8 spawned processes (prefill_32k
+   and train_4k cut: minutes a cell), the mesh's records read by
    sched.energy_aware.load_cells with the H100 record, a job mix of 24 jobs
    (default_job_mix and job_trace, seed 2, arrivals over 3600 s), and
    evaluate_schedulers over the 15 (vm_sched, pm_sched) lanes on 8 nodes,
@@ -182,7 +197,7 @@ Phases, each of which raises on failure (nothing is caught):
    T = 4096 counted by launch.op_cost on real card tensors and on meta
    tensors, product and pointwise FLOPs equal (the meta peak beside
    max_memory_allocated, recorded); the card's idle power draw;
-12. the last line: {"ok": true, "device": {...}}.
+13. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is present.  Writes
 the full record to DIR/chip_smoke.json (default build/chip_smoke/).
@@ -3405,6 +3420,257 @@ def train_phase(dev, out: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The mesh phase (slice 12): launch.train.build on a mesh of NCCL ranks, one
+# a visible card, its checkpoint restored on a mesh of gloo ranks of the CPU
+# ---------------------------------------------------------------------------
+
+MESH_MAX_RANKS = 4
+# granite-3-2b at its published widths, cut to `layers` layers (PERF.md
+# section 4): the mesh state and the plain one-device state share a card
+MESH_TRAIN = dict(arch="granite-3-2b", layers=2, B=4, T=2048, steps=2,
+                  xent_chunk=512)
+# the mesh's losses against the plain step's, and the worst parameter
+# leaf's update (after the steps less before) against the plain step's, as
+# the norm of their difference over the norm of the plain update (PERF.md
+# section 6): AdamW's first steps are near sign(g) * lr, so an element
+# whose gradient is near 0 may move by up to 2 lr on one side and not the
+# other, and an elementwise bound would read that noise (one rank on the
+# H100: losses 7.2e-7 apart, the worst update 5.7e-3; half the learning
+# rate would read 0.5)
+MESH_LOSS_RTOL = 1e-5
+MESH_UPDATE_RTOL = 5e-2
+MESH_PIPE = dict(M=8, mb=4, d=256)   # gpipe over the ranks, f32
+MESH_RESTORE = (2, 2)      # the CPU mesh the card's checkpoint lands on
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(rank: int, world: int, port: int) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+
+
+def _mesh_train_args(spec: dict):
+    return argparse.Namespace(compress=False, accum=1, lr=3e-4, warmup=2,
+                              steps=100, xent_chunk=spec["xent_chunk"])
+
+
+def _sync_if_card(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_steps(step, state, cfg, dev, spec) -> tuple:
+    """``spec``'s steps (MESH_TRAIN) of ``step`` from ``state``: (state,
+    losses, walls)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=spec["T"],
+                      global_batch=spec["B"], seed=0)
+    losses, walls = [], []
+    for i in range(spec["steps"]):
+        batch = make_batch(dcfg, i, model_cfg=cfg)
+        _sync_if_card(dev)
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        _sync_if_card(dev)
+        walls.append(time.perf_counter() - t0)
+    return state, losses, walls
+
+
+def _mesh_rank(rank: int, world: int, port: int, out: str, device,
+               spec: dict) -> None:
+    """One rank of the mesh phase (a spawned process): NCCL on card
+    ``rank`` (gloo with ``device="cpu"``, the CPU rehearsal)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    _rank_env(rank, world, port)
+    dev = mesh_mod.init_from_env(device)
+    try:
+        rec = _mesh_rank_work(world, dev, pathlib.Path(out), spec)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        pathlib.Path(out, "mesh_rank0.json").write_text(json.dumps(rec))
+
+
+def _mesh_rank_work(world: int, dev, out: pathlib.Path, spec: dict) -> dict:
+    """launch.train.build on an n x 1 mesh (``spec``), the launch counters
+    set to 0 just before and read just after; its checkpoint written; the
+    plain one-device step on this rank's device from the same state and
+    batches; gpipe over the ranks against sequential application."""
+    from repro_torch import configs, kernels
+    from repro_torch.dist import pipeline
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import common as cm
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.ckpt import Checkpointer
+
+    card_ = torch.device(dev).type == "cuda"
+    if card_:
+        from repro_torch.device import match_xla_matmul
+        match_xla_matmul()
+    cfg = configs.get(spec["arch"], n_layers=spec["layers"])
+    dm = mesh_mod.device_mesh(mesh_mod.make_mesh((world, 1),
+                                                 ("data", "model")), dev)
+    step, state_sh, _ = train_mod.build(cfg, dm, _mesh_train_args(spec))
+    state = shd.distribute(step_mod.init_state(cfg, 0, device=dev), state_sh)
+    rec = dict(ranks=world, mesh={"data": world, "model": 1},
+               arch=cfg.name, layers=cfg.n_layers, B=spec["B"], T=spec["T"],
+               params=sum(t.numel() for _, t in cm.leaves(state["params"])),
+               local_state_bytes=sum(
+                   shd.local(t).nbytes for _, t in cm.leaves(state)),
+               backend=torch.distributed.get_backend())
+    if card_:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, rec["losses"], rec["step_walls_s"] = _mesh_steps(
+        step, state, cfg, dev, spec)
+    rec["launches"] = kernels.launch_counts()
+    if card_:
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rec["fallbacks"] = dict(shd.FALLBACKS)
+    t0 = time.perf_counter()
+    Checkpointer(out / "mesh_ckpt").save(state, spec["steps"])
+    rec["save_s"] = time.perf_counter() - t0
+
+    plain = step_mod.init_state(cfg, 0, device=dev)
+    pstep = step_mod.make_train_step(cfg, peak_lr=3e-4, warmup_steps=2,
+                                     total_steps=100,
+                                     xent_chunk=spec["xent_chunk"])
+    plain, rec["plain_losses"], rec["plain_step_walls_s"] = _mesh_steps(
+        pstep, plain, cfg, dev, spec)
+    init = step_mod.init_state(cfg, 0, device=dev)["params"]
+    gaps, max_abs = {}, {}
+    for (path, a), (_, b), (_, c) in zip(cm.leaves(state["params"]),
+                                         cm.leaves(plain["params"]),
+                                         cm.leaves(init)):
+        a, key = shd.full(a), "/".join(path)
+        gaps[key] = float(torch.linalg.vector_norm((a - c) - (b - c))
+                          / torch.linalg.vector_norm(b - c).clamp_min(1e-30))
+        max_abs[key] = float((a - b).abs().max() / b.abs().max())
+    worst = max(gaps, key=gaps.get)
+    rec["param_gap"] = dict(leaf=worst, update_rel=gaps[worst],
+                            leaves=len(gaps),
+                            max_abs_over_max=max(max_abs.values()),
+                            update_rel_by_leaf=gaps)
+    del state, plain, init
+    if card_:
+        torch.cuda.empty_cache()
+
+    p = MESH_PIPE
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    w = (torch.randn(world, p["d"], p["d"], generator=gen) * 0.05).to(dev)
+    b = (torch.randn(world, p["d"], generator=gen) * 0.1).to(dev)
+    xs = torch.randn(p["M"], p["mb"], p["d"], generator=gen).to(dev)
+    run = pipeline.gpipe(lambda q, x: torch.tanh(x @ q["w"] + q["b"]),
+                         mesh_mod.make_mesh((world,), ("stage",)), "stage",
+                         world)
+    got = run({"w": w, "b": b}, xs)
+    want = xs
+    for s in range(world):
+        want = torch.tanh(want @ w[s] + b[s])
+    rec["gpipe"] = dict(stages=world, **p, point_to_point=world > 1,
+                        max_abs_err=float((got - want).abs().max()))
+    return rec
+
+
+def _mesh_restore_rank(rank: int, world: int, port: int, out: str,
+                       spec: dict) -> None:
+    """One gloo rank of the CPU mesh MESH_RESTORE: the card's checkpoint
+    restored onto its shardings, each rank's shard of each leaf held bit
+    for bit against its slice of the file."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import common as cm
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.ckpt import Checkpointer
+
+    _rank_env(rank, world, port)
+    torch.set_num_threads(1)
+    mesh_mod.init_from_env("cpu")
+    try:
+        cfg = configs.get(spec["arch"], n_layers=spec["layers"])
+        dm = mesh_mod.device_mesh(mesh_mod.make_mesh(
+            MESH_RESTORE, ("data", "model")), "cpu")
+        target = step_mod.init_state(cfg, 0, device="meta")
+        sh = shd.tree_shardings(step_mod.state_axes(cfg), target, dm,
+                                shd.TRAIN_RULES)
+        ck = pathlib.Path(out, "mesh_ckpt")
+        state, step = Checkpointer(ck).restore(target, shardings=sh)
+        leaves = sharded = 0
+        with np.load(ck / f"step_{step:08d}.npz") as zf:
+            for path, t in cm.leaves(state):
+                want = zf["/".join(path)][shd.local_index(
+                    t.shape, dm, t.placements)]
+                assert np.array_equal(t.to_local().numpy(), want), path
+                leaves += 1
+                sharded += t.to_local().numel() < t.numel()
+        if rank == 0:
+            pathlib.Path(out, "mesh_restore.json").write_text(json.dumps(
+                dict(mesh=list(MESH_RESTORE), step=step, leaves=leaves,
+                     sharded_leaves=sharded, bit_equal=True)))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(out: pathlib.Path, device=None, spec=MESH_TRAIN) -> dict:
+    """The mesh phase: one rank a visible card (at most MESH_MAX_RANKS,
+    NCCL) runs _mesh_rank_work; then MESH_RESTORE gloo ranks of the CPU
+    restore the checkpoint the card's mesh wrote, bit for bit.  Every rank
+    is a spawned process, joined before it returns; a rank that fails
+    fails the phase.  ``device="cpu"`` rehearses it on gloo ranks."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    out = out / "mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    world = (min(torch.cuda.device_count(), MESH_MAX_RANKS)
+             if device is None else 1)
+    print(json.dumps({"mesh_ranks": world}))
+    if device is None:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(world, _free_port(), str(out), device,
+                               dict(spec)), nprocs=world, join=True)
+    rec = json.loads((out / "mesh_rank0.json").read_text())
+    rec["ranks_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = int(np.prod(MESH_RESTORE))
+    mp.spawn(_mesh_restore_rank, args=(n, _free_port(), str(out),
+                                       dict(spec)), nprocs=n, join=True)
+    rec["restore"] = json.loads((out / "mesh_restore.json").read_text())
+    rec["restore"]["wall_s"] = time.perf_counter() - t0
+    shutil.rmtree(out / "mesh_ckpt", ignore_errors=True)
+    print(json.dumps({"mesh": rec}))
+    np.testing.assert_allclose(rec["losses"], rec["plain_losses"],
+                               rtol=MESH_LOSS_RTOL, err_msg="mesh vs plain")
+    assert rec["param_gap"]["update_rel"] <= MESH_UPDATE_RTOL, rec["param_gap"]
+    from repro_torch.dist import sharding as shd
+    assert set(rec["fallbacks"]) <= shd.FALLBACK_OPS, rec["fallbacks"]
+    assert all(np.isfinite(rec["losses"])), rec["losses"]
+    assert not any(rec["launches"].values()), rec["launches"]
+    assert rec["gpipe"]["max_abs_err"] <= 2e-5, rec["gpipe"]
+    assert rec["restore"]["step"] == spec["steps"], rec["restore"]
+    assert rec["restore"]["sharded_leaves"] > 0, rec["restore"]
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # The fleet phase (slice 11): the dry run on meta tensors, the energy-aware
 # fleet's scheduler matrix on the card
 # ---------------------------------------------------------------------------
@@ -3414,6 +3680,10 @@ def train_phase(dev, out: pathlib.Path) -> dict:
 # cell on meta tensors (a chunked-attention step of 32,768 positions runs
 # ~5 M aten ops), so they are cut (PERF.md section 4).
 FLEET_SHAPES = ("decode_32k", "long_500k")
+# each cell on one device and on the 16x16 production mesh (one rank of a
+# fake group of 256); the matrix reads the mesh's records, as the
+# reference's load_cells does
+FLEET_MESHES = ("1x1", "single")
 FLEET_WORKERS = 8
 FLEET_JOBS = dict(n_jobs=24, seed=2, arrival_spread_s=3600.0, n_pods=8)
 # the cell counted on real card tensors and on meta tensors
@@ -3422,25 +3692,28 @@ FLEET_COUNT = dict(arch="granite-3-2b", batch=1, seq=4096)
 
 def _fleet_cell_worker(job) -> dict:
     """One published cell through ``launch.dryrun.run_cell`` (meta
-    tensors, no device), its record written under ``out``."""
-    arch, shape_name, out = job
+    tensors, no device) on a mesh, its record written under ``out``."""
+    arch, shape_name, mesh_name, out = job
     from repro_torch.launch import dryrun
-    rec = dryrun.run_cell(arch, shape_name)
-    pathlib.Path(out, f"{arch}_{shape_name}_1x1.json").write_text(
+    rec = dryrun.run_cell(arch, shape_name, mesh_name)
+    pathlib.Path(out, f"{arch}_{shape_name}_{mesh_name}.json").write_text(
         json.dumps(rec, indent=1))
-    return {k: rec.get(k) for k in ("arch", "shape", "ok", "skipped",
-                                    "run_s", "error")}
+    return {k: rec.get(k) for k in ("arch", "shape", "mesh", "ok",
+                                    "skipped", "run_s", "error")}
 
 
-def _fleet_jobs(out: pathlib.Path, shapes=FLEET_SHAPES) -> list:
-    """The dry run's cells (every arch at ``shapes``), their records to go
-    under ``out`` (emptied first)."""
+def _fleet_jobs(out: pathlib.Path, shapes=FLEET_SHAPES,
+                meshes=FLEET_MESHES) -> list:
+    """The dry run's cells (every arch at ``shapes`` on ``meshes``), their
+    records to go under ``out`` (emptied first), the slowest (the 16x16
+    mesh's) first."""
     from repro_torch import configs
 
     out.mkdir(parents=True, exist_ok=True)
     for old in out.glob("*.json"):
         old.unlink()
-    return [(a, s, str(out)) for s in shapes for a in configs.ARCHS]
+    return [(a, s, m, str(out)) for m in reversed(meshes) for s in shapes
+            for a in configs.ARCHS]
 
 
 def _rows_close(name: str, got: list, want: list):
@@ -3544,12 +3817,17 @@ def fleet_phase(dev, out: pathlib.Path) -> dict:
                                 h100_record_idle_w=ea.H100.idle_w)
         dry = pending.get()
     rec["dry_run"] = dict(wall_s=time.perf_counter() - t0, cells=dry,
-                          counted=sum(not c["skipped"] for c in dry))
+                          counted={m: sum(not c["skipped"] for c in dry
+                                          if c["mesh"] == m)
+                                   for m in FLEET_MESHES})
     failed = [c for c in dry if not c["ok"]]
     assert not failed, ("fleet: dry-run cells failed", failed)
 
-    cells = ea.load_cells(dry_dir, chip=ea.H100)
-    assert len(cells) == rec["dry_run"]["counted"], sorted(cells)
+    for m in FLEET_MESHES:
+        got = ea.load_cells(dry_dir, m, chip=ea.H100)
+        assert len(got) == rec["dry_run"]["counted"][m], (m, sorted(got))
+    cells = ea.load_cells(dry_dir, chip=ea.H100)      # "single"
+    assert all(c.collective_s > 0 for c in cells.values()), cells
     rec["cells"] = {f"{a}/{s}": dict(dataclasses.asdict(c), step_s=c.step_s,
                                      bottleneck=c.bottleneck,
                                      utilisation=c.utilisation)
@@ -3761,6 +4039,8 @@ def main() -> int:
     record["main_path"]["lm_families"] = families
     record["main_path"]["train"] = timed("train", train_phase, dev,
                                          pathlib.Path(args.out))
+    record["main_path"]["mesh"] = timed("mesh", mesh_phase,
+                                        pathlib.Path(args.out))
     record["main_path"]["fleet"] = timed("fleet", fleet_phase, dev,
                                          pathlib.Path(args.out))
     record["phase_s"] = phase_s

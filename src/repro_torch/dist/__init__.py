@@ -1,3 +1,4 @@
 """Distribution utilities (port of ``repro.dist``): logical-axis sharding
-rules (:mod:`.sharding`) and pipeline stages (:mod:`.pipeline`), for one
-device.  Runs on more than one card wait for ROADMAP queue 1, item 16."""
+rules and their DTensor placements, activation constraints
+(:mod:`.sharding`), and pipeline stages over the ranks of a mesh axis
+(:mod:`.pipeline`)."""

@@ -24,10 +24,10 @@ def linear_scan_plain(a, x, h0=None):
     """(y, h_last): every ``h_t`` in ``x``'s dtype and the final state in
     f32.  a, x: [B, T, D]; h0: [B, D] f32 or None (zeros)."""
     B, T, D = x.shape
-    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    h = (x.new_zeros((B, D), dtype=torch.float32) if h0 is None
+         else h0.float())
     a32, x32 = a.float(), x.float()
-    y = torch.empty((B, T, D), dtype=x.dtype, device=x.device)
+    y = x.new_empty((B, T, D))
     for t in range(T):
         h = a32[:, t] * h + x32[:, t]
         y[:, t] = h

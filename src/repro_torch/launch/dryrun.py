@@ -15,22 +15,29 @@ so that either package's ``sched.energy_aware.load_cells`` and
 ``benchmarks/roofline.py`` read either package's records:
 ``arch``, ``shape``, ``mesh``, ``ok``, ``skipped``, ``params_total``,
 ``params_active``, ``model_flops``, ``mesh_shape``, ``collectives`` (zero on
-one device) and the counts under ``hlo_cost``; and adds ``counter``
-(``"torch_dispatch"``: counted from the eager ops, not from HLO), ``memory``
+one device; :func:`collective_bytes`) and the counts under ``hlo_cost``;
+and adds ``counter`` (``"torch_dispatch"``: counted from the eager ops,
+not from HLO), ``memory``
 (argument, output and in-place-aliased bytes, and the counted peak as
 ``temp_size_in_bytes``) and ``pspecs`` (each argument leaf's partition
 spec).
 
-The port runs on one device, so only a mesh of one device (``1x1``, the
-default) is run.  A cell on a mesh of more devices records ``ok: false``
-with the reason (ROADMAP queue 1, item 16) and its partition specs, and no
-count.
+A cell on a mesh of more than one device runs in this one process under
+a fake process group of ``mesh.size`` ranks (``launch.mesh.init_fake``):
+its arguments are ``meta`` DTensors on their partition specs' placements,
+the step runs inside ``dist.sharding.act_ctx``, and the count is one
+rank's: each op at its local shapes, the collectives DTensor issues by
+kind with their operand bytes, and the memory of the local shards.  The
+production meshes are ``single`` (16x16) and ``multi`` (2x16x16), the
+default, as the reference's; ``1x1`` is the one device.
 
     python -m repro_torch.launch.dryrun --out DIR [--arch A,B] [--shape S]
+        [--mesh single,multi,1x1,2x4]
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
 import traceback
@@ -42,8 +49,9 @@ from repro_torch import configs
 from repro_torch.configs.shapes import (ENCDEC_DECODE_SRC, SHAPES,
                                         input_specs, skip_reason)
 from repro_torch.dist import sharding as shd
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import op_cost
-from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh, parse_mesh
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 from repro_torch.train import step as train_step_mod
@@ -51,8 +59,16 @@ from repro_torch.train import step as train_step_mod
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
-MULTI_DEVICE = ("the port runs on one device: a dry run on a mesh of more "
-                "devices waits for ROADMAP queue 1, item 16")
+
+def collective_bytes(counter: op_cost.OpCount) -> dict:
+    """Per-collective operand bytes and counts of one counted run, in the
+    reference's record: ``{kind: {"bytes", "count"}, "total_bytes"}``
+    (``collective-permute``, which DTensor does not issue, stays 0)."""
+    out = {k: {"bytes": int(counter.collective_bytes.get(k, 0)),
+               "count": int(counter.collective_counts.get(k, 0))}
+           for k in _COLLECTIVES}
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    return out
 
 
 def active_params(cfg) -> tuple[int, int]:
@@ -102,7 +118,10 @@ def build_cell(cfg, shape, mesh, *, accum: int = 8, rules_train=None,
     and an empty cache; decode:
     ``lm.decode_step`` of the cache's last position, ``seq - 1`` (one new
     token against a full cache of ``seq``; the reference's traced index
-    makes its attention scan every chunk of the cache, as this does)."""
+    makes its attention scan every chunk of the cache, as this does).
+    On a mesh the serving steps return their logits replicated, as the
+    reference's cells give them out (``out_shardings``); the train step's
+    metrics are replicated already."""
     rules_train = rules_train or shd.TRAIN_RULES
     rules_serve = rules_serve or shd.SERVE_RULES
     specs = input_specs(cfg, shape)
@@ -131,7 +150,8 @@ def build_cell(cfg, shape, mesh, *, accum: int = 8, rules_train=None,
             cache, mesh, rules_serve)
 
         def fn(params, batch, cache):
-            return lm.prefill(cfg, params, batch, cache)
+            logits, cache = lm.prefill(cfg, params, batch, cache)
+            return shd.replicate(logits), cache
 
         return fn, (params, batch, cache), (
             params_ps, shd.tree_pspecs(shd.batch_axes(batch), batch, mesh,
@@ -147,7 +167,8 @@ def build_cell(cfg, shape, mesh, *, accum: int = 8, rules_train=None,
                            rules_serve)
 
     def fn(params, tokens, cache):
-        return lm.decode_step(cfg, params, tokens, cache)
+        logits, cache = lm.decode_step(cfg, params, tokens, cache)
+        return shd.replicate(logits), cache
 
     return fn, (params, specs["tokens"], cache), (params_ps, tok_ps, cache_ps)
 
@@ -194,31 +215,53 @@ def _mesh_of(mesh_name: str):
         return make_production_mesh(multi_pod=False)
     if mesh_name == "multi":
         return make_production_mesh(multi_pod=True)
-    dims = tuple(int(x) for x in mesh_name.split("x"))
-    return make_mesh(dims, ("pod", "data", "model")[-len(dims):])
+    return parse_mesh(mesh_name)
+
+
+def _on_mesh(args, pspecs, dm):
+    """``args`` as ``meta`` DTensors on ``pspecs``' placements on the
+    DeviceMesh ``dm`` (host numbers kept)."""
+    def one(arg, ps):
+        lone = isinstance(arg, torch.Tensor)     # a lone tensor and spec
+        tree, specs = ({"x": arg}, {"x": ps}) if lone else (arg, ps)
+        out = shd.distribute(tree, cm.tree_map(
+            lambda _, p: (dm, shd.placements(p, dm)), specs,
+            is_leaf=shd.is_spec))
+        return out["x"] if lone else out
+
+    return tuple(one(a, ps) for a, ps in zip(args, pspecs))
 
 
 def measure(cfg, shape, mesh, *, accum: int = 8, rules_train=None,
             rules_serve=None) -> dict:
     """The counted part of a record: build the cell (:func:`build_cell`)
-    and, on a mesh of one device, run it once under
-    :class:`~repro_torch.launch.op_cost.OpCount`.  On a mesh of more
-    devices only the specs and the reason it did not run."""
+    and run it once under :class:`~repro_torch.launch.op_cost.OpCount`;
+    on a mesh of more devices as one rank of a fake process group of
+    ``mesh.size`` ranks (module docstring), which is ended after."""
     t0 = time.perf_counter()
     fn, args, pspecs = build_cell(cfg, shape, mesh, accum=accum,
                                   rules_train=rules_train,
                                   rules_serve=rules_serve)
     rec = {"build_s": time.perf_counter() - t0,
            "pspecs": [_flat_specs(s) for s in pspecs]}
-    if mesh.size > 1:
-        rec["error"] = MULTI_DEVICE
-        return rec
     t0 = time.perf_counter()
-    out, counter = op_cost.count(fn, *args)
+    if mesh.size > 1:
+        rules = ((rules_train or shd.TRAIN_RULES) if shape.kind == "train"
+                 else (rules_serve or shd.SERVE_RULES))
+        mesh_mod.init_fake(mesh)
+        try:
+            dm = mesh_mod.device_mesh(mesh, "meta")
+            args = _on_mesh(args, pspecs, dm)
+            with op_cost.OpCount(args) as counter:
+                with shd.act_ctx(dm, rules):
+                    out = fn(*args)
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        out, counter = op_cost.count(fn, *args)
     rec["run_s"] = time.perf_counter() - t0
     rec["hlo_cost"] = counter.summary()
-    rec["collectives"] = {k: {"bytes": 0, "count": 0} for k in _COLLECTIVES}
-    rec["collectives"]["total_bytes"] = 0
+    rec["collectives"] = collective_bytes(counter)
     rec["memory"] = {
         "argument_size_in_bytes": op_cost.tree_nbytes(args),
         "output_size_in_bytes": op_cost.tree_nbytes(out),
@@ -250,8 +293,11 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "1x1", *,
                mesh_shape={k: int(v) for k, v in mesh.shape.items()})
     if cfg_overrides:
         rec["cfg_overrides"] = dict(cfg_overrides)
+    before = collections.Counter(shd.FALLBACKS)
     rec.update(measure(cfg, shape, mesh, accum=accum,
                        rules_train=rules_train, rules_serve=rules_serve))
+    # the ops this cell ran replicated for want of a DTensor strategy
+    rec["fallbacks"] = dict(shd.FALLBACKS - before)
     rec["ok"] = "error" not in rec
     return rec
 
@@ -279,10 +325,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all",
                     help="arch id, comma list, or 'all'")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh", default="1x1",
-                    help="comma list of '1x1' (the one device run), "
-                         "'single', 'multi', or 'AxB' / 'AxBxC' (more "
-                         "devices: recorded as not run)")
+    ap.add_argument("--mesh", default="single,multi",
+                    help="comma list of 'single' (16x16), 'multi' "
+                         "(2x16x16), '1x1' (one device) or 'AxB' / "
+                         "'AxBxC'")
     ap.add_argument("--accum", type=int, default=8)
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--tag", default="", help="suffix for result files")

@@ -17,13 +17,27 @@ a dry run) as on real ones, and counts the same ops on both.
 * **bytes_accessed**: input plus output bytes of each op that is not a view.
   That is the eager port's own traffic: it fuses nothing, so it moves more
   than XLA's count of a fused program;
-* **collectives**: zero on one device (the keys are kept so that a record
-  reads as the reference's);
+* **collectives**: the operand bytes and the count of each functional
+  collective (``_c10d_functional``: ``all_gather_into_tensor``,
+  ``reduce_scatter_tensor``, ``all_reduce``, ``all_to_all_single``) under
+  the reference's kinds (``all-gather``, ``reduce-scatter``,
+  ``all-reduce``, ``all-to-all``), as ``hlo_cost`` sums each HLO
+  collective's operands; zero on one device;
 * **peak_bytes**: the most bytes of storage, made by the program's ops, that
   were alive at once (the arguments not counted).  A storage counts from
   the op that made it until it is freed (a finalizer on its storage object,
   which lives as long as the storage does, views and autograd's saved
   tensors included).
+
+On a mesh the program's tensors are DTensors (``dist.sharding``) and the
+counter counts what one rank runs: an op on DTensors is left to DTensor,
+which runs it on the local shards, and those local ops are counted, at
+their local shapes, with the collectives its redistributions issue.
+DTensor's sharding propagation also runs an op once on global-shape fake
+tensors the first time it meets that op's schema (it caches the result):
+ops on fake tensors, or that make them, are not counted, so the count
+does not depend on the state of that cache.  Sizes (the arguments', the outputs', the peak) are
+of the local shards.
 
 ``analyze(fn, *args)`` returns the reference's keys; :func:`breakdown`
 ranks the aten ops by the same weighting as the reference's.
@@ -35,9 +49,23 @@ import math
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..dist import sharding as shd
+
 aten = torch.ops.aten
+
+# functional collectives -> the reference's HLO collective kinds
+COLLECTIVE_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
 
 # product ops: the operand whose last dim is contracted
 _DOT_LHS = {aten.mm.default: 0, aten.addmm.default: 1, aten.bmm.default: 0,
@@ -45,10 +73,11 @@ _DOT_LHS = {aten.mm.default: 0, aten.addmm.default: 1, aten.bmm.default: 0,
 
 
 def _tensors(tree, out=None) -> list:
-    """The tensor leaves of nested tuples, lists and dicts, in order."""
+    """The tensor leaves of nested tuples, lists and dicts, in order (a
+    DTensor as its local shard)."""
     out = [] if out is None else out
     if isinstance(tree, torch.Tensor):
-        out.append(tree)
+        out.append(shd.local(tree))
     elif isinstance(tree, (list, tuple)):
         for x in tree:
             _tensors(x, out)
@@ -168,19 +197,33 @@ class OpCount(TorchDispatchMode):
         self._meta_outputs = {}    # see _meta_call
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.collective_bytes = collections.Counter()
+        self.collective_counts = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(shd.is_dtensor_type(t) for t in types):
+            return NotImplemented       # DTensor runs it on local shards
+        ins = _tensors(args, _tensors(kwargs))
+        if any(isinstance(t, FakeTensor) for t in ins):
+            return func(*args, **kwargs)    # DTensor's global-shape trial
+        if func.namespace == "_c10d_functional":
+            kind = COLLECTIVE_KINDS.get(func.overloadpacket.__name__)
+            if kind is not None:
+                self.collective_bytes[kind] += sum(map(_nbytes, ins))
+                self.collective_counts[kind] += 1
+            return func(*args, **kwargs)
         info = _OP_INFO.get(func)
         if info is None:
             info = _OP_INFO[func] = _OpInfo(func)
-        ins = _tensors(args, _tensors(kwargs))
         out = _meta_call(self._meta_outputs, func, info, ins, args, kwargs)
+        outs = _tensors(out)
+        if not ins and any(isinstance(t, FakeTensor) for t in outs):
+            return out          # a factory op of the same trial
         row = self.by_op[info.name]
         row["calls"] += 1
         if info.is_view:
             return out
-        outs = _tensors(out)
         moved = float(sum(map(_nbytes, ins)) + sum(map(_nbytes, outs)))
         dots = _dot_flops(func, args, outs[0]) if outs else 0.0
         elems = float(outs[0].numel()) if outs and info.pointwise else 0.0
@@ -231,9 +274,12 @@ class OpCount(TorchDispatchMode):
             "elem_flops": self.elem_flops,
             "flops": self.dot_flops + self.elem_flops,
             "bytes_accessed": self.bytes_accessed,
-            "collective_bytes": {},
-            "collective_counts": {},
-            "collective_total_bytes": 0.0,
+            "collective_bytes": {k: float(v) for k, v in
+                                 self.collective_bytes.items()},
+            "collective_counts": {k: float(v) for k, v in
+                                  self.collective_counts.items()},
+            "collective_total_bytes": float(
+                sum(self.collective_bytes.values())),
             "while_trips": [],
             "n_ops": sum(r["calls"] for r in self.by_op.values()),
             "peak_bytes": self.peak_bytes,

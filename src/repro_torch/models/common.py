@@ -72,25 +72,32 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
-def tree_map(fn, tree, prefix=()):
+def tree_map(fn, tree, prefix=(), is_leaf=None):
     """``fn(path, leaf)`` over a tree of dicts, lists and named tuples; keeps
     the nesting.  Dict keys are visited in sorted order, a named tuple's
-    fields in their order (each under its name, as in a JAX key path)."""
+    fields in their order (each under its name, as in a JAX key path).  A
+    node for which ``is_leaf`` is true is a leaf (a partition spec, which
+    is a plain tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(prefix, tree)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], prefix + (k,)) for k in sorted(tree)}
+        return {k: tree_map(fn, tree[k], prefix + (k,), is_leaf)
+                for k in sorted(tree)}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, getattr(tree, k), prefix + (k,))
+        return type(tree)(*(tree_map(fn, getattr(tree, k), prefix + (k,),
+                                     is_leaf)
                             for k in tree._fields))
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v, prefix + (str(i),))
+        return [tree_map(fn, v, prefix + (str(i),), is_leaf)
                 for i, v in enumerate(tree)]
     return fn(prefix, tree)
 
 
-def leaves(tree) -> list:
+def leaves(tree, is_leaf=None) -> list:
     """``(path, leaf)`` pairs of a tree, in :func:`tree_map` order."""
     out = []
-    tree_map(lambda path, leaf: out.append((path, leaf)), tree)
+    tree_map(lambda path, leaf: out.append((path, leaf)), tree,
+             is_leaf=is_leaf)
     return out
 
 

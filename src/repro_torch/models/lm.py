@@ -38,6 +38,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from ..device import match_xla_matmul_on
+from ..dist.sharding import constrain, heads_local, is_dtensor
 from . import common as cm
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
@@ -314,11 +315,14 @@ def _attn_core(cfg: ModelConfig, ls: LayerSpec, p: dict, h, positions, *,
         k, v = cache_update(cache["k"], cache["v"], k, v, index)
         kv_len = index + h.shape[1]
         q_offset = index
-    o = attention(
-        q, k, v, causal=ls.causal and kv_override is None, window=ls.window,
-        softcap=cfg.attn_softcap, prefix_len=prefix_len, q_offset=q_offset,
-        scale=cfg.attn_scale, kv_len=kv_len, impl=cfg.attn_impl,
-        q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+    attn = functools.partial(
+        attention, causal=ls.causal and kv_override is None,
+        window=ls.window, softcap=cfg.attn_softcap, prefix_len=prefix_len,
+        q_offset=q_offset, scale=cfg.attn_scale, kv_len=kv_len,
+        impl=cfg.attn_impl, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+    # on a mesh each rank attends over its own batch rows and heads, the
+    # keys gathered along the sequence once (heads_local)
+    o = heads_local(attn, q, k, v) if is_dtensor(q) else attn(q, k, v)
     return torch.einsum("bthk,hkd->btd", o, p["wo"].to(h.dtype))
 
 
@@ -330,7 +334,16 @@ def _ffn_core(cfg: ModelConfig, ls: LayerSpec, p: dict, h):
                                    act=cfg.act)
         return y, torch.stack([aux["moe_load_balance"], aux["moe_z_loss"],
                                aux["moe_dropped_frac"]])
-    g, u = torch.chunk(h @ p["w_gu"].to(h.dtype), 2, dim=-1)
+    w_gu = p["w_gu"].to(h.dtype)
+    if is_dtensor(w_gu) and h[..., 0].numel() > w_gu.shape[0]:
+        # on a mesh, splitting the product sharded over "mlp" into its gate
+        # and up halves gathers it whole; with more tokens than model dims
+        # the weight's halves are the smaller thing to gather, so run two
+        # products on them
+        ff = w_gu.shape[-1] // 2
+        g, u = h @ w_gu[:, :ff], h @ w_gu[:, ff:]
+    else:
+        g, u = torch.chunk(h @ w_gu, 2, dim=-1)
     y = cm.ACTIVATIONS[cfg.act](g.float()).to(h.dtype) * u
     return (y @ p["w_down"].to(h.dtype),
             torch.zeros((3,), dtype=torch.float32, device=h.device))
@@ -380,19 +393,26 @@ def apply_layer(cfg: ModelConfig, ls: LayerSpec, p: dict, x, positions, *,
         if cache is not None:
             cache["conv"].copy_(conv)
             cache["ssm"].copy_(ssm)
+    # a sub-layer's output joins the residual stream at its spec: on a mesh
+    # a row-parallel product leaves a partial sum, which DTensor would
+    # otherwise carry through the next norm into the next product and run
+    # that product whole on every rank of the model axis
+    o = constrain(o, ("batch", "seq", None))
 
     if cfg.parallel_block:
         f, aux = _ffn_core(cfg, ls, p["ffn"], h)
-        return x + rm * (o + f), aux
+        return x + rm * (o + constrain(f, ("batch", "seq", None))), aux
     if cfg.sandwich_norm:
         o = _apply_norm(cfg, p["ln_post"], o)
     x = x + rm * o
     if ls.cross:
         h = _apply_norm(cfg, p["ln_x"], x)
-        x = x + rm * _attn_core(cfg, ls, p["xattn"], h, positions,
-                                kv_override=enc_kv)
+        x = x + rm * constrain(_attn_core(cfg, ls, p["xattn"], h, positions,
+                                          kv_override=enc_kv),
+                               ("batch", "seq", None))
     h = _apply_norm(cfg, p["ffn_ln"], x)
     f, aux = _ffn_core(cfg, ls, p["ffn"], h)
+    f = constrain(f, ("batch", "seq", None))
     if cfg.sandwich_norm:
         f = _apply_norm(cfg, p["ffn_ln_post"], f)
     return x + rm * f, aux
@@ -445,6 +465,9 @@ def apply_stack(cfg: ModelConfig, blocks, x, positions, *, role="decoder",
             x, a = apply_layer(cfg, ls, p, x, positions, cache=cache,
                                index=index, prefix_len=prefix_len,
                                enc_kv=enc_kv)
+            # pin the residual stream to its logical sharding between
+            # layers, as the reference does
+            x = constrain(x, ("batch", "seq", None))
             aux = aux + a
         return x, aux
 
@@ -508,7 +531,7 @@ def embed_tokens(cfg: ModelConfig, params, tokens, positions):
     x = x * torch.tensor(scale * cfg.embed_multiplier, dtype=cfg.cdtype)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoid(positions, cfg.d_model).to(cfg.cdtype)
-    return x
+    return constrain(x, ("batch", "seq", None))
 
 
 def unembed(cfg: ModelConfig, params, h):

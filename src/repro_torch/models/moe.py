@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..dist import sharding as shd
 from .common import ACTIVATIONS, spec
 
 
@@ -56,7 +57,13 @@ def moe_apply(p, x, *, top_k: int, capacity_factor: float = 1.25,
     C = capacity(N, k, E, capacity_factor)
     act_fn = ACTIVATIONS[act]
 
-    xf = x.reshape(N, d)
+    # on a mesh the routing runs on every token on every rank: the
+    # positions are a cumsum over the global batch (as the reference's),
+    # and DTensor has no strategy for the dispatch's index_put nor the
+    # combine's gather at token-sharded placements.  The tokens' gradient
+    # is pinned so too: a token-sharded one would reach the reshape's
+    # backward split over more ranks than the batch has rows
+    xf = shd.constrain(x.reshape(N, d), (None, None))
     logits = xf.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)                     # (N, E)
     gate, sel, pos, keep = route(probs, k, C)
@@ -66,20 +73,26 @@ def moe_apply(p, x, *, top_k: int, capacity_factor: float = 1.25,
     sel_flat = sel.reshape(-1)
     tok = torch.arange(N, device=x.device).repeat_interleave(k)
     slot = torch.where(keep, pos, C)
-    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+    buf = xf.new_zeros((E, C + 1, d))
     buf[sel_flat, slot] = xf[tok]
     buf = buf[:, :C]
 
-    gu = torch.bmm(buf, p["w_gu"].to(x.dtype))
+    # the expert buffers at their weights' placements, so that each rank
+    # runs its experts' products on its share of the model dims (and their
+    # gradients are reduced where the weights' are)
+    buf = shd.constrain(buf, ("experts", None, "embed"))
+    gu = shd.constrain(torch.bmm(buf, p["w_gu"].to(x.dtype)),
+                       ("experts", None, "mlp"))
     g, u = torch.chunk(gu, 2, dim=-1)
     h = act_fn(g.float()).to(x.dtype) * u
-    out = torch.bmm(h, p["w_down"].to(x.dtype))
+    out = shd.constrain(torch.bmm(h, p["w_down"].to(x.dtype)),
+                        ("experts", None, "embed"))
 
     # combine: token n adds its k terms in k order
     gathered = out[sel_flat, torch.where(keep, pos, 0)]       # (N*k, d)
     w_flat = (gate.reshape(-1) * keep).to(x.dtype)
     terms = (gathered * w_flat[:, None]).reshape(N, k, d)
-    y = torch.zeros((N, d), dtype=x.dtype, device=x.device)
+    y = xf.new_zeros((N, d))
     for j in range(k):
         y = y + terms[:, j]
 

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import ssm as kssm
 
+from ..dist.sharding import constrain
 from . import common as cm
 from .common import silu, spec
 
@@ -113,11 +114,12 @@ def mamba_apply(p, x, *, d_state: int = 16, chunk: int = 256,
     dt_rank = p["dt_norm"].shape[0]
 
     xz = x @ p["in_proj"].to(x.dtype)
+    xz = constrain(xz, ("batch", "seq", "mlp"))
     x_in, z = torch.chunk(xz, 2, dim=-1)
     conv_state = None if state is None else state[0]
     x_c, conv_state = _causal_conv(x_in, p["conv_w"], p["conv_b"],
                                    state=conv_state)
-    x_c = silu(x_c)
+    x_c = constrain(silu(x_c), ("batch", "seq", "mlp"))
 
     dbc = x_c @ p["x_proj"].to(x_c.dtype)
     dt, Bm, Cm = torch.split(dbc, [dt_rank, d_state, d_state], dim=-1)
@@ -126,12 +128,14 @@ def mamba_apply(p, x, *, d_state: int = 16, chunk: int = 256,
     Cm = cm.rms_norm(Cm, p["c_norm"]).float()
     dt = cm.softplus(dt @ p["dt_w"].to(dt.dtype)
                      + p["dt_bias"].to(dt.dtype)).float()
+    dt = constrain(dt, ("batch", "seq", "mlp"))
 
     A = -torch.exp(p["a_log"].float())                    # (di, N)
     h0 = (torch.zeros((B, di * d_state), dtype=torch.float32,
                       device=x.device) if state is None else state[1])
     y, h_last = _selective_scan(dt, Bm, Cm, x_c, A, h0, chunk=chunk,
                                 impl=impl)
+    y = constrain(y, ("batch", "seq", "mlp"))
     y = y + p["d_skip"].float() * x_c.float()
     y = (y * silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"].to(x.dtype)

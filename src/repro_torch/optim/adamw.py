@@ -9,6 +9,11 @@ before the moments.  The reference's constants: b1 0.9, b2 0.95, eps 1e-8.
 (the reference returns new arrays, and its launcher donates the old ones
 to the jitted step), a slice of a leaf at a time, so that a step holds one
 slice's temporaries beside the state.
+
+On a mesh (DTensor leaves) the global norm is reduced over the whole
+mesh, and the update, elementwise once the clip scale is known, runs on
+each rank's local shards of the parameter, its moments and its gradient
+(the gradient first placed as the parameter is).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..dist import sharding as shd
 from ..models import common as cm
 
 
@@ -44,12 +50,13 @@ def init(params) -> AdamWState:
 @torch.no_grad()
 def global_norm(tree):
     """sqrt of the sum of every leaf's sum of squares, in f32, the leaves
-    taken in sorted-key order as the reference's ``jax.tree.leaves``."""
+    taken in sorted-key order as the reference's ``jax.tree.leaves``; a
+    plain tensor, reduced over the mesh for DTensor leaves."""
     total = None
     for _, x in cm.leaves(tree):
         sq = torch.sum(torch.square(x.float()))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return shd.full(torch.sqrt(total))
 
 
 @torch.no_grad()
@@ -71,17 +78,19 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
     gn = global_norm(grads)
     scale = _clip_scale(gn, max_norm=max_grad_norm)
     step = state.step + 1
-    stepf = step.float()
+    stepf = shd.local(step).float()
     b1c = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                        device=stepf.device), stepf)
     b2c = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=stepf.device), stepf)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
+    lr = torch.as_tensor(shd.local(lr), dtype=torch.float32,
+                         device=stepf.device)
     gs, ms, vs = (dict(cm.leaves(t)) for t in (grads, state.m, state.v))
     for path, p in cm.leaves(params):
-        flat = [t.view(-1) for t in (p, ms[path], vs[path])]
-        flat.append(gs[path].reshape(-1))
-        for i in range(0, p.numel(), _SLICE):
+        g = shd.like(gs[path], p)
+        flat = [shd.local(t).view(-1) for t in (p, ms[path], vs[path])]
+        flat.append(shd.local(g).reshape(-1))
+        for i in range(0, flat[0].numel(), _SLICE):
             p_, m, v, g = (t[i:i + _SLICE] for t in flat)
             g = g.float() * scale
             m.copy_(b1 * m + (1 - b1) * g)

@@ -98,10 +98,13 @@ def roofline_terms(rec: dict, *, chip: Chip = H100
     return compute, memory, collective
 
 
-def load_cells(dryrun_dir: str | Path, mesh: str = "1x1", *,
+def load_cells(dryrun_dir: str | Path, mesh: str = "single", *,
                chip: Chip = H100) -> dict:
     """``{(arch, shape): CellPerf}`` of every counted record of ``mesh``
-    under ``dryrun_dir`` (skipped and failed cells left out)."""
+    under ``dryrun_dir`` (skipped and failed cells left out): by default
+    the 16x16 ``single`` records, as the reference's, whose collective
+    term charges the bytes the dry run counted over ``chip.link_bw``;
+    ``"1x1"`` reads the one-device records, whose collectives are zero."""
     cells = {}
     for path in Path(dryrun_dir).glob(f"*_{mesh}.json"):
         rec = json.loads(path.read_text())

@@ -1,5 +1,5 @@
 """Training step: chunked cross-entropy, gradient accumulation, AdamW (port
-of ``repro/train/step.py``), on one device.
+of ``repro/train/step.py``), on one device or a mesh of them.
 
 * **Chunked loss** — the final ``[B, T, vocab]`` logits never exist: the
   normed hidden states are unembedded a sequence chunk at a time inside
@@ -34,6 +34,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
+from ..dist import sharding as shd
 from ..models import common as cm
 from ..models import lm
 from ..optim import adamw, compress, schedule as sched_mod
@@ -48,9 +49,14 @@ class PartialUpdateError(RuntimeError):
 
 
 def _xent_chunk(cfg, params, hc, tc, mc):
+    hc = shd.constrain(hc, ("batch", None, None))
     logits = lm.unembed(cfg, params, hc)                 # (B, c, V) f32
+    logits = shd.constrain(logits, ("batch", None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, tc[..., None])[..., 0]
+    # on a vocab-sharded mesh the gather is a masked partial sum; reduce it
+    # at its own shape (DTensor's mask does not follow the [..., 0] select)
+    ll = shd.constrain(torch.gather(logits, -1, tc[..., None]),
+                       ("batch", None, None))[..., 0]
     return torch.sum((lse - ll) * mc), torch.sum(mc)
 
 
@@ -96,7 +102,8 @@ def loss_fn(cfg, params, batch, *, lb_coef: float = 0.01,
 def loss_and_grads(cfg, params, batch, **loss_kw):
     """(gradients of :func:`loss_fn` as a tree of ``params``' nesting,
     metrics detached): ``jax.grad(loss_fn, has_aux=True)`` of the
-    reference.  A leaf the loss does not reach gets zeros."""
+    reference.  A leaf the loss does not reach gets zeros; on a mesh each
+    gradient is placed as its parameter is."""
     pairs = cm.leaves(params)
     with torch.enable_grad():
         leaves = {path: t.detach().requires_grad_(True) for path, t in pairs}
@@ -105,7 +112,7 @@ def loss_and_grads(cfg, params, batch, **loss_kw):
             **loss_kw)
         grads = torch.autograd.grad(total, list(leaves.values()),
                                     allow_unused=True)
-    grads = {path: torch.zeros_like(t) if g is None else g
+    grads = {path: torch.zeros_like(t) if g is None else shd.like(g, t)
              for (path, t), g in zip(pairs, grads)}
     return (cm.tree_map(lambda path, _: grads[path], params),
             {k: v.detach() for k, v in metrics.items()})
@@ -154,7 +161,12 @@ def make_train_step(cfg, *, accum: int = 1, peak_lr: float = 3e-4,
     :class:`PartialUpdateError` (module docstring); ``batch`` holds arrays or tensors
     with the global batch on the leading axis.  The metrics are 0-d
     tensors: the reference's ``loss``, ``tokens``, ``moe_lb``, ``moe_z``,
-    ``moe_dropped``, ``lr``, ``grad_norm`` and ``step``."""
+    ``moe_dropped``, ``lr``, ``grad_norm`` and ``step``.
+
+    On a mesh the state's leaves are DTensors (``dist.sharding.distribute``
+    on ``tree_shardings`` of :func:`state_axes`) and the step runs inside
+    ``dist.sharding.act_ctx``; its metrics are plain tensors, the same on
+    every rank."""
     sched = functools.partial(sched_mod.SCHEDULES[schedule],
                               peak_lr=peak_lr, warmup_steps=warmup_steps,
                               total_steps=total_steps)
@@ -172,8 +184,8 @@ def make_train_step(cfg, *, accum: int = 1, peak_lr: float = 3e-4,
                                  f"{accum} microbatches")
             size = n // accum
             grads = cm.tree_map(
-                lambda _, p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params)
+                lambda _, p: torch.zeros_like(p, dtype=torch.float32),
+                params)
             metrics = {k: 0.0 for k in METRICS}
             for i in range(accum):
                 mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
@@ -198,7 +210,7 @@ def make_train_step(cfg, *, accum: int = 1, peak_lr: float = 3e-4,
                 f"train step failed while writing the state: {e}") from e
         metrics = dict(metrics, lr=lr, **opt_metrics,
                        step=state["opt"].step.float())
-        return state, metrics
+        return state, {k: shd.full(v) for k, v in metrics.items()}
 
     return train_step
 

@@ -273,12 +273,12 @@ def test_meta_and_real_tensors_count_the_same():
 
 def test_dryrun_cli_writes_records_both_packages_read(tmp_path):
     """The CLI on the published configs: a cell skipped, a cell run, the
-    same cells on a 2x2 mesh recorded as not run; the port's load_cells
-    and the reference's both read the run cell."""
+    same cells on a 2x2 mesh run under a fake group of four ranks; the
+    port's load_cells and the reference's both read the run cells."""
     rc = dryrun.main(["--arch", "granite-3-2b,rwkv6-3b", "--shape",
                       "long_500k", "--mesh", "1x1,2x2", "--out",
                       str(tmp_path)])
-    assert rc == 1        # the 2x2 records are failures
+    assert rc == 0
     recs = {p.stem: json.loads(p.read_text())
             for p in tmp_path.glob("*.json")}
     assert len(recs) == 4
@@ -295,11 +295,16 @@ def test_dryrun_cli_writes_records_both_packages_read(tmp_path):
     assert ran["memory"]["alias_size_in_bytes"] > 0      # the cache
     assert ran["pspecs"][0]["embed"] == [None, None]
     multi = recs["rwkv6-3b_long_500k_2x2"]
-    assert not multi["ok"] and "item 16" in multi["error"]
-    assert "hlo_cost" not in multi
+    assert multi["ok"] and "error" not in multi
+    assert multi["mesh_shape"] == {"data": 2, "model": 2}
+    assert 0 < multi["hlo_cost"]["dot_flops"] < ran["hlo_cost"]["dot_flops"]
+    assert multi["collectives"]["total_bytes"] == (
+        multi["hlo_cost"]["collective_total_bytes"])
     assert multi["pspecs"][0]["embed"] == ["model", None]   # serve rules
-    cells = ea.load_cells(tmp_path, mesh="1x1")
-    jcells = jea.load_cells(tmp_path, mesh="1x1")
-    assert list(cells) == list(jcells) == [("rwkv6-3b", "long_500k")]
-    assert cells[("rwkv6-3b", "long_500k")].compute_s == (
-        ran["hlo_cost"]["dot_flops"] / ea.H100.peak_flops)
+    assert recs["granite-3-2b_long_500k_2x2"]["skipped"]
+    for mesh, rec in (("1x1", ran), ("2x2", multi)):
+        cells = ea.load_cells(tmp_path, mesh=mesh)
+        jcells = jea.load_cells(tmp_path, mesh=mesh)
+        assert list(cells) == list(jcells) == [("rwkv6-3b", "long_500k")]
+        assert cells[("rwkv6-3b", "long_500k")].compute_s == (
+            rec["hlo_cost"]["dot_flops"] / ea.H100.peak_flops)

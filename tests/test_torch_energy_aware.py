@@ -88,8 +88,9 @@ def test_roofline_and_load_cells_match_reference(tmp_path):
         assert sorted(got) == sorted(want)
         for key, w in want.items():
             assert dataclasses.astuple(got[key]) == dataclasses.astuple(w)
-    assert sorted(ea.load_cells(tmp_path, chip=REF)) == [
-        ("a1", "decode_32k"), ("a1", "train_4k"), ("a2", "prefill_32k")]
+    # the default mesh is the reference's: the 16x16 "single" records
+    assert sorted(ea.load_cells(tmp_path, chip=REF)) == sorted(
+        jea.load_cells(tmp_path)) == [("a2", "train_4k")]
 
 
 def test_h100_roofline_by_hand():

@@ -45,6 +45,10 @@ def test_port_imports_neither_jax_nor_reference():
             PORT / "dist" / "pipeline.py", PORT / "launch" / "mesh.py",
             PORT / "launch" / "op_cost.py", PORT / "launch" / "dryrun.py",
             PORT / "sched" / "energy_aware.py",
+            PORT / "launch" / "train.py", PORT / "train" / "ckpt.py",
+            PORT / "train" / "step.py", PORT / "optim" / "adamw.py",
+            PORT / "optim" / "compress.py", PORT / "models" / "moe.py",
+            PORT / "models" / "ssm.py", PORT / "kernels" / "ssm.py",
             *(PORT / "configs" / f"{name}.py" for name in (
                 "gemma2_27b", "command_r_35b", "granite_3_2b",
                 "codeqwen1_5_7b", "granite_moe_1b_a400m", "phi3_5_moe_42b",
@@ -221,6 +225,79 @@ def test_dryrun_and_fleet_run_with_jax_blocked(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_mesh_layer_runs_with_jax_blocked():
+    """The mesh layer (a fake group of four ranks: the state placed by
+    tree_shardings, a sharded train step under act_ctx with int8
+    compression, a dry-run cell on 2x2) runs with every import of JAX or
+    the reference refused; the process group and the device mesh refuse
+    what they cannot run on."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None      # any import of them now fails\n"
+        "import torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.data.pipeline import DataConfig, make_batch\n"
+        "from repro_torch.dist import sharding as shd\n"
+        "from repro_torch.launch import dryrun, mesh\n"
+        "from repro_torch.train import step\n"
+        "m = mesh.parse_mesh('2x2')\n"
+        "try:\n"
+        "    mesh.device_mesh(m, 'cpu')\n"
+        "    raise SystemExit('no group: should raise')\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no process group' in str(e), e\n"
+        "mesh.init_fake(mesh.parse_mesh('2x4'))\n"
+        "try:\n"
+        "    mesh.device_mesh(m, 'cpu')\n"
+        "    raise SystemExit('8 ranks for 4: should raise')\n"
+        "except ValueError as e:\n"
+        "    assert '4 devices' in str(e), e\n"
+        "mesh.init_fake(m)\n"
+        "dm = mesh.device_mesh(m, 'cpu')\n"
+        "cfg = configs.get_reduced('granite-3-2b')\n"
+        "st = step.init_state(cfg, 0, use_compression=True, device='cpu')\n"
+        "sh = shd.tree_shardings(step.state_axes(cfg, use_compression=True),\n"
+        "                        st, dm, shd.TRAIN_RULES)\n"
+        "st = shd.distribute(st, sh)\n"
+        "ts = step.make_train_step(cfg, use_compression=True)\n"
+        "b = make_batch(DataConfig(vocab=cfg.vocab, seq_len=16,\n"
+        "                          global_batch=4), 0, model_cfg=cfg)\n"
+        "with shd.act_ctx(dm, shd.TRAIN_RULES):\n"
+        "    st, met = ts(st, b)\n"
+        "assert type(met['loss']) is torch.Tensor\n"
+        "assert shd.is_dtensor(st['params']['embed'])\n"
+        "torch.distributed.destroy_process_group()\n"
+        "rec = dryrun.run_cell('rwkv6-3b', 'decode_32k', '2x2',\n"
+        "                      cfg_overrides={'n_layers': 2})\n"
+        "assert rec['ok'] and rec['hlo_cost']['dot_flops'] > 0, rec\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_mesh_entry_points_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train as ltrain
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.init_from_env()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.device_mesh(tmesh.host_mesh())
+    with pytest.raises(RuntimeError, match="torchrun"):
+        ltrain.main(["--arch", "granite-3-2b", "--reduced", "--mesh", "2x2",
+                     "--device", "cpu"])
 
 
 def test_batch_entry_points_need_a_card_or_cpu():

@@ -180,9 +180,11 @@ def test_gpipe_errors():
     with pytest.raises(ValueError, match="stacked"):
         jpipe.gpipe(lambda p, x: x, None, "stage", S)(
             {"w": Ws, "b": bs[:3]}, xs)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tpipe.gpipe(lambda p, x: x, tmesh.make_mesh((4,), ("stage",)),
-                    "stage", S)
+    spread = tpipe.gpipe(lambda p, x: x, tmesh.make_mesh((4,), ("stage",)),
+                         "stage", S)   # over ranks: needs their group
+    with pytest.raises(RuntimeError, match="no process group"):
+        spread({"w": torch.from_numpy(Ws), "b": torch.from_numpy(bs)},
+               torch.from_numpy(xs))
 
 
 def test_meshes():
