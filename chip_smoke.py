@@ -6,9 +6,11 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every kernel under src/repro_torch/csrc/, one nvcc per source,
-   all started together; neither the bf16 flash kernel at D = 128 nor the
-   solve may spill, nor the bf16 flash kernel at D = 64 and 256 (the
-   other families' head dims);
+   all started together; neither the mma.sync flash kernel at D = 128 nor
+   the solve may spill, nor that kernel at D = 64 and 256 (the other
+   families' head dims), nor the wgmma flash kernel at D = 64 and 128,
+   whose registers, dynamic shared memory and ptxas's notes on the wgmma
+   pipeline are recorded;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, its edge cases, its run-to-run bit identity, and its
    time (CUDA events, median of 100 launches after warm-up) beside the
@@ -37,9 +39,10 @@ Phases, each of which raises on failure (nothing is caught):
    one launch a call, B = 1 equal to the 1-D launch; timed at B = 1 and
    B = 8 (2);
 4. the main path at full width: 500 PM x 4096 VM (the largest row of the
-   repository's throughput grid) under 1000 DAS-2-like tasks (--tasks;
-   the grid's 2000 since slice 1, cut in slice 8 to keep the script
-   inside its time limit on a slow host), compacted
+   repository's throughput grid) under 500 DAS-2-like tasks (--tasks;
+   the grid's 2000 since slice 1, cut to 1000 in slice 8 and to 500 in
+   slice 13 to keep the script inside its time limit on a slow host),
+   compacted
    (bucket 2048, the reference's auto bucket given explicitly: full_width)
    and under the auto rule, which runs dense on the card
    (full_width_dense), on the same trace, which must agree in events,
@@ -83,9 +86,9 @@ Phases, each of which raises on failure (nothing is caught):
    (streaming_cross_check): twice on the card, bit-identical and bit-equal
    to the monolithic card run, once on the CPU within tolerance, and a
    gwa_window_stream generator of 200 tasks, card against CPU; then the
-   full-width cell at 60 tasks, compacted and dense, the above-gate cell
-   at 100 tasks, the batched full-width cell at 60 and the streamed
-   full-width cell at 60 (in 8 windows) under torch.profiler, summarised
+   full-width cell at 30 tasks, compacted and dense, the above-gate cell
+   at 50 tasks, the batched full-width cell at 30 and the streamed
+   full-width cell at 30 (in 8 windows) under torch.profiler, summarised
    from the trace's raw events: device idle share, device time of each
    hand-written kernel, events/s, kernel launches and host reads per pass
    (the compacted pass may not read the host more often than the dense
@@ -114,11 +117,20 @@ Phases, each of which raises on failure (nothing is caught):
    the state_change_events of both steps equal);
 7. LM kernels: flash_attention and linear_scan against their plain
    versions on random cases covering every feature (f32 on the CUDA-core
-   kernel, bf16 on the tensor-core one, each with its own tile shape and
-   visited-tile count) and at the Jamba hybrid's full-width shapes, timed
-   beside the plain version, the bound and (flash) PyTorch's
-   scaled_dot_product_attention, with the device time alone and the
-   wrapper's host time;
+   kernel; bf16 on the wgmma kernel at D = 64 and 128 and on the mma.sync
+   kernel at every other D, each with its own tile shape and visited-tile
+   count; the cases at D = 64 and 128 also on the mma.sync kernel, through
+   the wrapper's private launcher), the wgmma kernel's own cases
+   (kernels.flash_cases.WGMMA_CASES: T ragged against its tiles, g = 1,
+   2, 4, 8 and MQA, windows across tiles, softcaps, prefixes longer than a
+   KV tile, q offsets with Tq != Tk, non-causal self- and
+   cross-attention; each on the wgmma counter, two launches bit-identical,
+   visited tiles against the host's count) and at the Jamba hybrid's
+   full-width shapes (flash on both bf16 kernels, each held to the same
+   checks), timed beside the plain version, the bound and (flash)
+   PyTorch's scaled_dot_product_attention, with the device time alone and
+   the wrapper's host time, the mma.sync kernel's times beside the wgmma
+   kernel's;
 8. the Jamba hybrid LM at full width, cut from 32 to 16 layers to fit in
    HBM: lm.forward over 4096 tokens (lm_forward_full_width), then a
    ServeEngine batch of 4 prompts of 384-512 tokens with 32 new tokens each
@@ -136,8 +148,9 @@ Phases, each of which raises on failure (nothing is caught):
    freed between: lm.forward (gemma2 at 8192 tokens, so that its window
    of 4096 masks; seamless over 1024 frames and 512 tokens; paligemma
    over 256 patches and 768 tokens) with the launch counters set to 0
-   just before and read just after (one flash launch on the bf16 kernel
-   per attention layer, encoder and cross layers included), every flash
+   just before and read just after (one flash launch per attention
+   layer, encoder and cross layers included, on the bf16 kernel of the
+   family's head dim: wgmma at 64 and 128, mma.sync at 256), every flash
    launch's visited tiles against the host's count (gemma2's local
    layers fewer than its global ones) and the first launch at each shape
    against the plain version on the same inputs; a serve of 3 prompts of
@@ -147,14 +160,17 @@ Phases, each of which raises on failure (nothing is caught):
    cross-attention launch flash, as in the reference: those launches
    held against the plain version likewise, and every step's logits
    against attn_impl "chunked" fed the same tokens; 2 layers of each
-   attention family with attn_impl "pallas" against "chunked"; each
-   reduced config in f32 on the card against the CPU; then
+   attention family with attn_impl "pallas" against "chunked"; the first
+   attention sub-block of codeqwen, granite-3 and granite-moe alone,
+   kernel against chunked (ATTN_SUB_BLOCK_ARCHS); each reduced config in
+   f32 on the card against the CPU; then
    flash_attention at the new shapes (FAMILY_FLASH: gemma2 global and
    local at T = 8192, paligemma's prefix at D = 256, seamless's encoder
-   and cross-attention at D = 64) against its plain version, timed
-   beside the plain version, the bound and one PyTorch call that
-   computes the same function (SDPA; for gemma2's softcap, compiled
-   flex_attention);
+   and cross-attention at D = 64) against its plain version, two
+   launches bit-identical, timed beside the plain version, the bound and
+   one PyTorch call that computes the same function (SDPA; for gemma2's
+   softcap, compiled flex_attention), and at the wgmma kernel's rows the
+   mma.sync kernel held to the same checks and timed in the same turn;
 10. LM training (train): each of the ten reduced configs in f32, two
    train steps (train.step.make_train_step) on the card against the CPU
    from one seed-0 state and the same batches, loss, grad_norm, lr and
@@ -1142,11 +1158,13 @@ def _bits(readings: dict) -> dict:
 # Tasks of the kernel phases' captures and of --compare-parent's profiled
 # run.
 CAPTURE_TASKS = 150
-# Tasks of the profile phase's full-width, batched and streamed cells, cut
-# from CAPTURE_TASKS to keep the script inside its time limit (the
-# profiler's stop and summary grow with the events it holds); launches
-# and reads a pass are averages over the profiled passes
-PROFILE_TASKS = 60
+# Tasks of the profile phase's full-width, batched and streamed cells and
+# of its above-gate cell, cut (from CAPTURE_TASKS, then from 60 and 100 in
+# slice 13) to keep the script inside its time limit (the profiler's stop
+# and summary grow with the events it holds); launches and reads a pass
+# are averages over the profiled passes
+PROFILE_TASKS = 30
+PROFILE_ABOVE_TASKS = 50
 
 # name, PMs, VMs, tasks (None: --tasks), PM policy, spec.compact, bucket.
 # The auto rule (-1) runs dense on the card; 2048 is the reference's auto
@@ -1531,7 +1549,7 @@ def _stream_vs_mono(stream: dict, mono: dict) -> list:
             and stream[k].tobytes() != mono[k].tobytes()]
 
 
-# Windows of the streamed cells: 1000 tasks in 4 windows at full width
+# Windows of the streamed cells: 500 tasks in 2 windows at full width
 # (the default pool of 4096 + 256 slots), 200 in 4 in the cross-check.
 STREAM_WINDOW = 256
 CROSS_STREAM_WINDOW = 64
@@ -2313,6 +2331,7 @@ FLASH_CASES = [   # (B, Tq, Tk, Hq, Hkv, D, options)
     (2, 70, 70, 8, 2, 6, dict(causal=True, q_offset=5)),
     (1, 300, 300, 32, 8, 128, dict(causal=True)),              # Jamba heads
 ]
+FLASH_FULL = (1, 4096, 32, 8, 128)    # Jamba's attention: B, T, Hq, Hkv, D
 SCAN_CASES = [    # (B, T, D, a dtype, x dtype, with h0)
     (2, 13, 40, torch.float32, torch.float32, True),
     (1, 1, 7, torch.float32, torch.float32, True),
@@ -2333,6 +2352,80 @@ def _scan_inputs(B, T, D, a_dtype, x_dtype, with_h0, seed, dev):
     return a.to(a_dtype), x.to(x_dtype), h0
 
 
+def _bf16_counts(kattn) -> tuple[int, int]:
+    return (kattn.flash_attention.mma_launches,
+            kattn.flash_attention.wgmma_launches)
+
+
+def _variant_went(kattn, before: tuple[int, int], n: int = 1) -> str:
+    """The kernel that the last ``n`` flash launches ran on, from the
+    wrapper's counters read before them: "mma", "wgmma" or (neither moved)
+    "f32"."""
+    mma, wg = (a - b for a, b in zip(_bf16_counts(kattn), before))
+    assert sorted((mma, wg)) in ([0, 0], [0, n]), (mma, wg, n)
+    return "mma" if mma else "wgmma" if wg else "f32"
+
+
+def _check_visited(kattn, var, q, k, v, kw, what) -> int:
+    """One launch of ``var``'s kernel with ``visited``: its total against
+    the host's count (kernels.attention.visited_tiles); returns it."""
+    B, Tq, Hq, _ = q.shape
+    vis = torch.zeros(B * Hq * -(-Tq // var.bq), dtype=torch.int32,
+                      device=q.device)
+    kattn._launch(var, q, k, v, visited=vis, **kw)
+    mask = {o: kw[o] for o in ("causal", "window", "prefix_len", "q_offset")
+            if o in kw}
+    want = B * Hq * kattn.visited_tiles(Tq, k.shape[1], bq=var.bq,
+                                        bk=var.bk, **mask)
+    got = int(vis.sum())
+    assert got == want, (*what, got, want)
+    return got
+
+
+MMA_KEYS = ("mma_max_abs_err", "mma_ms", "mma_device_ms", "mma_host_us")
+
+
+def _mma_times(kattn, q, k, v, kw) -> dict:
+    """The mma.sync kernel's times at a shape the wgmma kernel takes (as
+    the row's own kernel is timed): ms, device alone and host us."""
+    def call():
+        return kattn._launch(kattn.MMA, q, k, v, **kw)
+    return dict(mma_ms=time_ms(call, n=30, warmup=3),
+                mma_device_ms=graph_ms(call, n=10),
+                mma_host_us=host_us(call, n=100, reps=3))
+
+
+def wgmma_case_checks(kattn, dev) -> dict:
+    """Each case of kernels.flash_cases.WGMMA_CASES (bf16, D = 64 and 128)
+    on the wgmma kernel: its counter, two launches bit-identical, the plain
+    version within FLASH_TOL, the visited tiles against the host's
+    count."""
+    from repro_torch.kernels.flash_cases import WGMMA_CASES
+
+    t0 = time.perf_counter()
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    err = 0.0
+    for i, (B, Tq, Tk, Hq, Hkv, D, kw) in enumerate(WGMMA_CASES):
+        var = kattn.variant(torch.bfloat16, D)
+        q, k, v = _randn(((B, Tq, Hq, D), (B, Tk, Hkv, D), (B, Tk, Hkv, D)),
+                         torch.bfloat16, 200 + i, dev)
+        c0 = _bf16_counts(kattn)
+        got = kattn.flash_attention(q, k, v, **kw)
+        again = kattn.flash_attention(q, k, v, **kw)
+        assert _variant_went(kattn, c0, 2) == var.name == "wgmma", (
+            "wgmma case", i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), ("wgmma case not bit-identical", i)
+        want = kattn.flash_attention_plain(q, k, v, **kw).float().cpu()
+        got = got.float().cpu()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=f"wgmma case {i} {kw}")
+        err = max(err, max_abs_err(got, want))
+        _check_visited(kattn, var, q, k, v, kw, ("wgmma visited tiles", i))
+    return {"wgmma_cases": len(WGMMA_CASES), "wgmma_cases_max_abs_err": err,
+            "wgmma_cases_s": time.perf_counter() - t0}
+
+
 def lm_kernel_phase(dev) -> tuple[dict, dict]:
     """flash_attention and linear_scan against their plain versions on
     random cases covering every feature, then at the full-width shapes of
@@ -2342,18 +2435,19 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
 
     records, checks = {}, {}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    n_mma = 0
+    went_by = {"f32": 0, "mma": 0, "wgmma": 0}
+    n_mma_held, mma_cases_s = 0, 0.0
     for i, (B, Tq, Tk, Hq, Hkv, D, kw) in enumerate(FLASH_CASES):
         for dtype in errs:
             var = kattn.variant(dtype, D)
             q, k, v = _randn(((B, Tq, Hq, D), (B, Tk, Hkv, D),
                               (B, Tk, Hkv, D)), dtype, i, dev)
-            mma0 = kattn.flash_attention.mma_launches
+            c0 = _bf16_counts(kattn)
             got = kattn.flash_attention(q, k, v, **kw).float().cpu()
-            went_mma = kattn.flash_attention.mma_launches - mma0
-            assert went_mma == (dtype == torch.bfloat16) == (
-                var.name == "mma"), ("flash variant", i, dtype, went_mma)
-            n_mma += went_mma
+            went = _variant_went(kattn, c0)
+            assert went == var.name and (dtype == torch.bfloat16) == (
+                var.name != "f32"), ("flash variant", i, dtype, went)
+            went_by[went] += 1
             want = kattn.flash_attention_plain(q, k, v, **kw).float().cpu()
             rtol, atol = FLASH_TOL[dtype]
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
@@ -2361,50 +2455,80 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
                                        err_msg=f"flash {dtype} {i} {kw}")
             errs[dtype] = max(errs[dtype], max_abs_err(got, want))
             # each variant's tile skip against the host's count
-            vis = torch.empty(B * Hq * -(-Tq // var.bq), dtype=torch.int32,
-                              device=dev)
-            kattn.flash_attention(q, k, v, visited=vis, **kw)
-            plan = B * Hq * kattn.visited_tiles(Tq, Tk, bq=var.bq, bk=var.bk,
-                                                **{o: kw[o] for o in (
-                                                    "causal", "window",
-                                                    "prefix_len", "q_offset")
-                                                   if o in kw})
-            assert int(vis.sum()) == plan, ("visited tiles", i, str(dtype),
-                                            int(vis.sum()), plan)
-    assert n_mma == len(FLASH_CASES)
+            _check_visited(kattn, var, q, k, v, kw, ("visited tiles", i,
+                                                     str(dtype)))
+            if var.name == "wgmma":
+                # the mma.sync kernel keeps its checks at the head dims the
+                # wgmma kernel took over
+                t0 = time.perf_counter()
+                c0 = _bf16_counts(kattn)
+                got = kattn._launch(kattn.MMA, q, k, v, **kw).float().cpu()
+                assert _variant_went(kattn, c0) == "mma", ("mma", i)
+                np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                           rtol=rtol, atol=atol,
+                                           err_msg=f"flash mma {i} {kw}")
+                errs[dtype] = max(errs[dtype], max_abs_err(got, want))
+                _check_visited(kattn, kattn.MMA, q, k, v, kw,
+                               ("mma visited tiles", i))
+                n_mma_held += 1
+                mma_cases_s += time.perf_counter() - t0
+    assert went_by["mma"] + went_by["wgmma"] == len(FLASH_CASES)
     checks["flash_cases"] = 2 * len(FLASH_CASES)
-    checks["flash_cases_bf16_on_tensor_cores"] = n_mma
+    checks["flash_cases_bf16_on_mma"] = went_by["mma"]
+    checks["flash_cases_bf16_on_wgmma"] = went_by["wgmma"]
+    checks["flash_cases_wgmma_d_also_on_mma"] = n_mma_held
+    checks["flash_cases_mma_s"] = mma_cases_s
     checks["flash_cases_max_abs_err"] = {str(k): v for k, v in errs.items()}
     checks["flash_tol_rtol_atol"] = {str(k): v for k, v in FLASH_TOL.items()}
+    checks.update(wgmma_case_checks(kattn, dev))
 
     # the Jamba forward's attention: B=1, T=4096, 32/8 heads, D=128, bf16
-    B, T, Hq, Hkv, D = 1, 4096, 32, 8, 128
+    B, T, Hq, Hkv, D = FLASH_FULL
     var = kattn.variant(torch.bfloat16, D)
     q, k, v = _randn(((B, T, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)),
                      torch.bfloat16, 99, dev)
-    mma0 = kattn.flash_attention.mma_launches
-    got = kattn.flash_attention(q, k, v)
-    again = kattn.flash_attention(q, k, v)
-    assert kattn.flash_attention.mma_launches - mma0 == 2, (
-        "full-width flash_attention did not run on the tensor cores")
-    want = kattn.flash_attention_plain(q, k, v)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again), "flash_attention differs between launches"
+    want = kattn.flash_attention_plain(q, k, v).float().cpu()
     rtol, atol = FLASH_TOL[torch.bfloat16]
-    err_full = max_abs_err(got.float().cpu(), want.float().cpu())
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=rtol,
-                               atol=atol, err_msg="flash full width")
-    checks["flash_full_width_max_abs_err"] = err_full
+    full = {}
+    t_mma = 0.0
+    for kv_name, call in (("wgmma", lambda: kattn.flash_attention(q, k, v)),
+                          ("mma", lambda: kattn._launch(kattn.MMA, q, k,
+                                                        v))):
+        t0 = time.perf_counter()
+        c0 = _bf16_counts(kattn)
+        got, again = call(), call()
+        assert _variant_went(kattn, c0, 2) == kv_name, (
+            f"full-width flash_attention did not run on the {kv_name} "
+            f"kernel")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (
+            f"flash_attention ({kv_name}) differs between launches")
+        err = max_abs_err(got.float().cpu(), want)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                                   rtol=rtol, atol=atol,
+                                   err_msg=f"flash full width {kv_name}")
+        kv_var = var if kv_name == "wgmma" else kattn.MMA
+        n_vis = _check_visited(kattn, kv_var, q, k, v, {},
+                               ("full-width visited tiles", kv_name))
+        full[kv_name] = dict(err=err, visited_share=n_vis / (
+            B * Hq * -(-T // kv_var.bq) * -(-T // kv_var.bk)))
+        if kv_name == "wgmma":
+            out = got
+        else:
+            t_mma += time.perf_counter() - t0
+        del got, again
     del want
-    vis = torch.empty(B * Hq * (T // var.bq), dtype=torch.int32,
-                      device=dev)
-    kattn.flash_attention(q, k, v, visited=vis)
-    assert int(vis.sum()) == B * Hq * kattn.visited_tiles(
-        T, T, bq=var.bq, bk=var.bk), "full-width visited tiles"
-    checks["flash_full_width_tiles_visited_share"] = int(vis.sum()) / (
-        B * Hq * (T // var.bq) * (T // var.bk))
+    err_full = full["wgmma"]["err"]
+    checks["flash_full_width_max_abs_err"] = err_full
+    checks["flash_full_width_mma_max_abs_err"] = full["mma"]["err"]
+    checks["flash_full_width_tiles_visited_share"] = full["wgmma"][
+        "visited_share"]
+    checks["flash_full_width_mma_tiles_visited_share"] = full["mma"][
+        "visited_share"]
     checks["flash_full_width_bit_identical"] = True
+    t0 = time.perf_counter()
+    mma_times = _mma_times(kattn, q, k, v, {})
+    checks["flash_full_width_mma_s"] = t_mma + time.perf_counter() - t0
     # the library yardstick: PyTorch's fused attention, KV heads expanded
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q.transpose(1, 2).contiguous()
@@ -2412,9 +2536,9 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
               .contiguous() for t in (k, v))
     lib = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
     checks["flash_full_width_vs_sdpa_max_abs_err"] = max_abs_err(
-        got.float().cpu(), lib.float().cpu())
+        out.float().cpu(), lib.float().cpu())
     flops = 4 * D * B * Hq * visible_pairs(T, T)
-    n_bytes = q.nbytes + k.nbytes + v.nbytes + got.nbytes
+    n_bytes = q.nbytes + k.nbytes + v.nbytes + out.nbytes
     records["flash_attention"] = dict(
         shape=f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
         variant=f"{var.name} (BQ={var.bq}, BK={var.bk})",
@@ -2429,9 +2553,10 @@ def lm_kernel_phase(dev) -> tuple[dict, dict]:
         device_ms=graph_ms(lambda: kattn.flash_attention(q, k, v), n=10),
         host_us=host_us(lambda: kattn.flash_attention(q, k, v), n=100,
                         reps=3),
+        mma_max_abs_err=full["mma"]["err"], **mma_times,
         bytes=n_bytes, ops=flops, ops_per_s=H100_BF16_OPS_PER_S,
         bound_ms_f32=bound_ms(n_bytes, flops)[0])
-    del q, k, v, qt, kt, vt, got, again, lib
+    del q, k, v, qt, kt, vt, out, lib
 
     # ---- linear_scan: bit-equal to the plain version everywhere ----------
     for i, (B, T, D, adt, xdt, with_h0) in enumerate(SCAN_CASES):
@@ -2566,7 +2691,9 @@ def lm_phase(dev) -> dict:
     n_attn = sum(ls.kind == "attn" for ls in lm.layer_kinds(cfg))
     n_mamba = cfg.n_layers - n_attn
     assert launches["flash_attention"] == n_attn == 2, launches
-    assert launches["flash_attention_mma"] == 2, launches   # bf16 variant
+    # bf16 at D = 128: the wgmma kernel
+    assert launches["flash_attention_wgmma"] == 2, launches
+    assert launches["flash_attention_mma"] == 0, launches
     assert launches["linear_scan"] == n_mamba * T // cfg.scan_chunk == 224, (
         launches)
     out["lm_forward_full_width"] = rec
@@ -2687,6 +2814,15 @@ def _flash_per_forward(cfg) -> int:
 
     n_attn = sum(ls.kind == "attn" for ls in lm.layer_kinds(cfg))
     return n_attn * (1 + cfg.is_encdec) + cfg.enc_layers * cfg.is_encdec
+
+
+def _flash_counter(cfg) -> str:
+    """The sub-counter of the bf16 flash kernel at ``cfg``'s head dim: the
+    wgmma kernel's at D = 64 and 128, the mma.sync kernel's otherwise."""
+    from repro_torch.kernels import attention as kattn
+
+    name = kattn.variant(torch.bfloat16, cfg.d_head).name
+    return f"flash_attention_{name}"
 
 
 def _plain_rows_err(kattn, q, k, v, out, kw) -> float:
@@ -2879,7 +3015,7 @@ def _family_serve(arch, cfg, params, spec, rng) -> dict:
         assert toks.shape == (FAMILY_PROMPTS, new), (arch, toks.shape)
         assert bool(((toks >= 0) & (toks < cfg.vocab)).all()), arch
         assert launches["flash_attention"] == launches[
-            "flash_attention_mma"] == want == len(seen), (
+            _flash_counter(cfg)] == want == len(seen), (
             arch, launches, want, len(seen))
         if want:
             rec["prefill_decode"]["flash_vs_plain"] = [
@@ -2906,10 +3042,53 @@ def _family_vs_plain(arch, cfg, params, batch, layers: int = 2) -> dict:
                launches_plain=launch_p)
     want = _flash_per_forward(cfg2)
     assert launch_k["flash_attention"] == launch_k[
-        "flash_attention_mma"] == want, (arch, launch_k, want)
+        _flash_counter(cfg)] == want, (arch, launch_k, want)
     assert launch_p["flash_attention"] == 0, (arch, launch_p)
     assert rec["ok"], (arch, "kernel vs plain", rec)
     return rec
+
+
+# the families whose first attention sub-block is held, kernel against
+# chunked, on its own: granite-3 and granite-moe, whose whole-model
+# kernel-vs-chunked error reads ~1e-6 against ~1e-3 for the other families
+# (ROADMAP queue 3), and codeqwen at D = 128 beside them
+ATTN_SUB_BLOCK_ARCHS = ("codeqwen1.5-7b", "granite-3-2b",
+                        "granite-moe-1b-a400m")
+
+
+def _attn_sub_block(cfg, params, T: int) -> dict:
+    """The first attention sub-block (lm._attn_core with layer 0's
+    weights) at the config's widths over T positions, attn_impl "pallas"
+    against "chunked" on the same normed input (randn, seed 6): the
+    relative L2 error of its output (LM_REL_L2_TOL) and its RMS, with the
+    residual multiplier that scales it into the residual stream."""
+    from repro_torch import kernels
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm
+
+    dev = params["embed"].device
+    pattern, _ = lm.find_pattern(lm.layer_kinds(cfg))
+    j = next(i for i, ls in enumerate(pattern) if ls.kind == "attn")
+    p = cm.tree_map(lambda _, t: t[0], params["blocks"][j])["attn"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    h = torch.randn((1, T, cfg.d_model), generator=g,
+                    device=dev).to(cfg.cdtype)
+    pos = torch.arange(T, device=dev)[None, :]
+    _sync(dev)
+    kernels.reset_launch_counts()
+    out_k = lm._attn_core(dataclasses.replace(cfg, attn_impl="pallas"),
+                          pattern[j], p, h, pos).float()
+    launches = dict(kernels.launch_counts(), **kernels.sub_launch_counts())
+    out_c = lm._attn_core(dataclasses.replace(cfg, attn_impl="chunked"),
+                          pattern[j], p, h, pos).float()
+    rel = float((out_k - out_c).norm() / out_c.norm())
+    assert launches["flash_attention"] == launches[_flash_counter(cfg)] == 1
+    assert rel <= LM_REL_L2_TOL, ("attention sub-block", cfg.name, rel)
+    return dict(tokens=T, d_head=cfg.d_head, rel_l2_err=rel,
+                rel_l2_tol=LM_REL_L2_TOL,
+                out_rms=float(out_c.pow(2).mean().sqrt()),
+                residual_multiplier=cfg.residual_multiplier,
+                launches=launches)
 
 
 def _family_cross_check(arch, dev) -> dict:
@@ -2949,7 +3128,9 @@ def _family_cross_check(arch, dev) -> dict:
     assert tok_c == tok_h, f"{arch}: card and CPU tokens differ"
     want = _flash_per_forward(cfg)
     assert launches["flash_attention"] == want, (arch, launches, want)
-    assert launches["flash_attention_mma"] == 0, (arch, launches)  # f32
+    # f32: the CUDA-core kernel
+    assert launches["flash_attention_mma"] == launches[
+        "flash_attention_wgmma"] == 0, (arch, launches)
     return dict(max_abs_err=err, launches=launches, serve_tokens_equal=True)
 
 
@@ -2995,7 +3176,7 @@ def lm_families_phase(dev) -> tuple[dict, dict]:
             arch, logits.shape)
         assert rec["forward"]["logits_finite"], (arch, "non-finite logits")
         assert launches["flash_attention"] == launches[
-            "flash_attention_mma"] == spec["flash"] == len(seen) == (
+            _flash_counter(cfg)] == spec["flash"] == len(seen) == (
             _flash_per_forward(cfg)), (arch, launches, len(seen))
         del logits
         if cfg.local_global_period:
@@ -3009,6 +3190,12 @@ def lm_families_phase(dev) -> tuple[dict, dict]:
         if spec["flash"]:
             rec["kernel_vs_plain"] = _family_vs_plain(arch, cfg, params,
                                                       batch)
+        if arch in ATTN_SUB_BLOCK_ARCHS:
+            t0 = time.perf_counter()
+            rec["attn_sub_block"] = _attn_sub_block(cfg, params, spec["T"])
+            rec["attn_sub_block"]["s"] = time.perf_counter() - t0
+            print(json.dumps({"attn_sub_block": {arch: rec[
+                "attn_sub_block"]}}))
         del params, batch
         torch.cuda.empty_cache()
         rec["cross_check"] = _family_cross_check(arch, dev)
@@ -3080,38 +3267,54 @@ def _library_call(q, k, v, kw, dev):
 
 
 def family_flash_rows(dev) -> dict:
-    """flash_attention at each FAMILY_FLASH shape, bf16: against its plain
-    version (FLASH_TOL), the visited tiles against the host's count, then
-    timed as lm_kernel_phase times it, beside one PyTorch call that
-    computes the same function (:func:`_library_call`)."""
+    """flash_attention at each FAMILY_FLASH shape, bf16: its kernel (wgmma
+    at D = 64 and 128, mma.sync at 256) against its plain version
+    (FLASH_TOL), two launches bit-identical, the visited tiles against the
+    host's count, then timed as lm_kernel_phase times it, beside one
+    PyTorch call that computes the same function (:func:`_library_call`);
+    at the wgmma kernel's rows the mma.sync kernel is held to the same
+    checks and timed in the same turn."""
     from repro_torch.kernels import attention as kattn
 
     rows = {}
+    rtol, atol = FLASH_TOL[torch.bfloat16]
     for name, (B, Tq, Tk, Hq, Hkv, D, kw, cell) in FAMILY_FLASH.items():
         var = kattn.variant(torch.bfloat16, D)
         q, k, v = _randn(((B, Tq, Hq, D), (B, Tk, Hkv, D), (B, Tk, Hkv, D)),
                          torch.bfloat16, Tq + D, dev)
-        mma0 = kattn.flash_attention.mma_launches
-        vis = torch.zeros(B * Hq * -(-Tq // var.bq), dtype=torch.int32,
-                          device=dev)
-        got = kattn.flash_attention(q, k, v, visited=vis, **kw)
-        assert kattn.flash_attention.mma_launches - mma0 == 1, name
-        mask = {o: kw[o] for o in ("causal", "window", "prefix_len")
-                if o in kw}
-        assert int(vis.sum()) == B * Hq * kattn.visited_tiles(
-            Tq, Tk, bq=var.bq, bk=var.bk, **mask), (name, "visited tiles")
-        want = kattn.flash_attention_plain(q, k, v, **kw)
-        rtol, atol = FLASH_TOL[torch.bfloat16]
-        err = max_abs_err(got.float().cpu(), want.float().cpu())
-        np.testing.assert_allclose(got.float().cpu().numpy(),
-                                   want.float().cpu().numpy(), rtol=rtol,
-                                   atol=atol, err_msg=name)
-        del want
+        want = kattn.flash_attention_plain(q, k, v, **kw).float().cpu()
+        c0 = _bf16_counts(kattn)
+        got = kattn.flash_attention(q, k, v, **kw)
+        again = kattn.flash_attention(q, k, v, **kw)
+        assert _variant_went(kattn, c0, 2) == var.name, name
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (name, "not bit-identical")
+        n_vis = _check_visited(kattn, var, q, k, v, kw, (name, "visited"))
+        err = max_abs_err(got.float().cpu(), want)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                                   rtol=rtol, atol=atol, err_msg=name)
+        extra = {}
+        if var.name == "wgmma":
+            t0 = time.perf_counter()
+            c0 = _bf16_counts(kattn)
+            mma = kattn._launch(kattn.MMA, q, k, v, **kw)
+            assert _variant_went(kattn, c0) == "mma", name
+            np.testing.assert_allclose(mma.float().cpu().numpy(),
+                                       want.numpy(), rtol=rtol, atol=atol,
+                                       err_msg=f"{name} mma")
+            _check_visited(kattn, kattn.MMA, q, k, v, kw, (name, "mma"))
+            extra = dict(mma_max_abs_err=max_abs_err(mma.float().cpu(), want),
+                         **_mma_times(kattn, q, k, v, kw))
+            extra["mma_s"] = time.perf_counter() - t0
+            del mma
+        del want, again
         library, lib = _library_call(q, k, v, kw, dev)
         lib_err = max_abs_err(got.float().cpu(),
                               lib().transpose(1, 2).float().cpu())
         library_ms = time_ms(lib, n=30, warmup=3)
         del lib
+        mask = {o: kw[o] for o in ("causal", "window", "prefix_len")
+                if o in kw}
         pairs = visible_pairs(Tq, Tk, **mask)
         flops = 4 * D * B * Hq * pairs
         n_bytes = q.nbytes + k.nbytes + v.nbytes + got.nbytes
@@ -3122,7 +3325,7 @@ def family_flash_rows(dev) -> dict:
             cell=cell, variant=f"{var.name} (BQ={var.bq}, BK={var.bk})",
             max_abs_err=err, library=library,
             max_abs_err_vs_library=lib_err,
-            visible_pairs=pairs, tiles_visited=int(vis.sum()),
+            visible_pairs=pairs, tiles_visited=n_vis,
             ms=time_ms(lambda: kattn.flash_attention(q, k, v, **kw), n=30,
                        warmup=3),
             device_ms=graph_ms(lambda: kattn.flash_attention(q, k, v, **kw),
@@ -3133,9 +3336,10 @@ def family_flash_rows(dev) -> dict:
                                                                  **kw),
                              n=5, warmup=1),
             library_ms=library_ms, bytes=n_bytes, ops=flops,
-            ops_per_s=H100_BF16_OPS_PER_S, bound_ms=b_ms, bound_by=b_by)
+            ops_per_s=H100_BF16_OPS_PER_S, bound_ms=b_ms, bound_by=b_by,
+            **extra)
         print(json.dumps({name: rows[name]}))
-        del q, k, v, got, vis
+        del q, k, v, got
         torch.cuda.empty_cache()
     return rows
 
@@ -3934,9 +4138,58 @@ def compare_parent(parent: str, n_tasks: int) -> dict:
     return out
 
 
+def build_phase() -> dict:
+    """Every kernel under src/repro_torch/csrc/ built at once (one nvcc a
+    source); the record of the build: wall and per-source seconds, each
+    kernel's registers, shared memory and spills, and the asserts that
+    neither flash kernel nor the solve spills."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import attention as kattn
+
+    t0 = time.perf_counter()
+    build_s = _build.build_all()
+    ptxas = {n: ptxas_report(_build.build_log(n)) for n in _build.SOURCES}
+    build = dict(wall_s=time.perf_counter() - t0, per_source=build_s,
+                 ptxas=ptxas)
+    print(json.dumps({"build": build}))
+    # the bf16 flash kernel at the head dims of the LMs: 128 (Jamba and the
+    # dense families), 64 (granite, seamless) and 256 (paligemma)
+    spills = {d: spill_stores(ptxas["attention"],
+                              f"_Z16flash_mma_kernelILi{d}E")
+              for d in (64, 128, 256)}
+    build["flash_mma_spill_stores"] = spills
+    print(json.dumps({"flash_mma_spill_stores": spills}))
+    assert not any(spills.values()), ("the bf16 flash kernel spills",
+                                      spills)
+    # the wgmma kernel (D = 64, 128): registers, shared memory (dynamic: the
+    # library reports its size), spills, and ptxas's notes on the wgmma
+    # pipeline (a serialised pipeline is a loss of speed, recorded)
+    wg_log = _build.build_log("attention_wgmma")
+    wgmma = {d: dict(ptxas=[v for n, v in ptxas["attention_wgmma"].items()
+                            if n.startswith(f"_Z18flash_wgmma_kernelILi{d}E")
+                            ][0],
+                     smem_bytes=kattn.wgmma_smem_bytes(d),
+                     spill_stores=spill_stores(
+                         ptxas["attention_wgmma"],
+                         f"_Z18flash_wgmma_kernelILi{d}E"))
+             for d in (64, 128)}
+    build["flash_wgmma"] = dict(
+        by_head_dim=wgmma,
+        pipeline_notes=[ln.split("ptxas info    : ")[-1] for ln in
+                        wg_log.splitlines() if "(C75" in ln])
+    print(json.dumps({"flash_wgmma_build": build["flash_wgmma"]}))
+    assert not any(w["spill_stores"] for w in wgmma.values()), (
+        "the wgmma flash kernel spills", wgmma)
+    solve = [v for k, v in ptxas["maxmin"].items()
+             if k.startswith("_Z19maxmin_solve_kernel")]
+    assert solve and " 0 bytes spill stores" in solve[0], (
+        "the solve kernel spills", solve)
+    return build
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tasks", type=int, default=1000,
+    ap.add_argument("--tasks", type=int, default=500,
                     help="DAS-2-like tasks of the full-width run")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"))
     ap.add_argument("--compare-parent", metavar="DIR",
@@ -3960,7 +4213,6 @@ def main() -> int:
         out.mkdir(parents=True, exist_ok=True)
         (out / "compare_parent.json").write_text(json.dumps(record, indent=1))
         return 0
-    from repro_torch.kernels import _build
 
     # torch.compile (the flex_attention yardstick of family_flash_rows)
     # keeps its caches beside the build
@@ -3972,26 +4224,7 @@ def main() -> int:
     from repro_torch.device import match_xla_matmul
     match_xla_matmul()
 
-    t0 = time.perf_counter()
-    build_s = _build.build_all()
-    ptxas = {n: ptxas_report(_build.build_log(n)) for n in _build.SOURCES}
-    record["build"] = dict(wall_s=time.perf_counter() - t0, per_source=build_s,
-                           ptxas=ptxas)
-    print(json.dumps({"build": record["build"]}))
-    # the bf16 flash kernel at the head dims of the LMs: 128 (Jamba and the
-    # dense families), 64 (granite, seamless) and 256 (paligemma)
-    spills = {d: spill_stores(ptxas["attention"],
-                              f"_Z16flash_mma_kernelILi{d}E")
-              for d in (64, 128, 256)}
-    record["build"]["flash_mma_spill_stores"] = spills
-    print(json.dumps({"flash_mma_spill_stores": spills}))
-    assert not any(spills.values()), ("the bf16 flash kernel spills",
-                                      spills)
-    solve = [v for k, v in ptxas["maxmin"].items()
-             if k.startswith("_Z19maxmin_solve_kernel")]
-    assert solve and " 0 bytes spill stores" in solve[0], (
-        "the solve kernel spills", solve)
-
+    record["build"] = build_phase()
     phase_s = {"build": record["build"]["wall_s"]}
 
     def timed(name, fn, *a):
@@ -4023,9 +4256,8 @@ def main() -> int:
                                               cross_check, "evacuate")
     record["streaming_cross_check"] = timed(
         "streaming_cross_check", streaming_cross_check, cross_mono)
-    # above the gate the main path's 100 tasks
-    record["profile"] = timed("profile", profile_phase, PROFILE_TASKS, 100,
-                              PROFILE_TASKS)
+    record["profile"] = timed("profile", profile_phase, PROFILE_TASKS,
+                              PROFILE_ABOVE_TASKS, PROFILE_TASKS)
     sharing = record["sharing"] = {}
     sharing["validation"] = timed("sharing_validation", sharing_validation)
     sharing["fig12"] = timed("sharing_fig12", sharing_fig12)
@@ -4055,7 +4287,7 @@ def main() -> int:
                "masked_min": ("src/repro_torch/csrc/horizon.cu",
                               "src/repro/kernels/horizon.py:55",
                               "full_width"),
-               "flash_attention": ("src/repro_torch/csrc/attention.cu",
+               "flash_attention": ("src/repro_torch/csrc/attention_wgmma.cu",
                                    "src/repro/kernels/attention.py:103",
                                    "lm_forward_full_width"),
                "linear_scan": ("src/repro_torch/csrc/scan.cu",
@@ -4121,7 +4353,7 @@ def main() -> int:
                                  "general_cases", "dense",
                                  "launch_floor_ms", "launch_floor_device_ms",
                                  "launch_floor_host_us", "plan_device_ms",
-                                 "b1") if x in k}))
+                                 "b1", *MMA_KEYS) if x in k}))
     # the solve at the sharing core's busiest pass (10,000 flows on one
     # spreader, sharing_fig12)
     k = sharing["fig12"]["busiest_pass_solve"]
@@ -4143,7 +4375,9 @@ def main() -> int:
                kw.get("prefix_len", 0))
         rows.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/csrc/attention.cu",
+            source="src/repro_torch/csrc/" + (
+                "attention_wgmma.cu" if k["variant"].startswith("wgmma")
+                else "attention.cu"),
             replaces="src/repro/kernels/attention.py:103",
             launches=fwd["launches"]["flash_attention"],
             launches_at_this_shape=sum(
@@ -4154,7 +4388,8 @@ def main() -> int:
             library_ms=k["library_ms"], shape=k["shape"],
             main_path_cell=f"lm_families {cell} forward",
             **{x: k[x] for x in ("variant", "device_ms", "host_us",
-                                 "library", "max_abs_err_vs_library")}))
+                                 "library", "max_abs_err_vs_library",
+                                 *MMA_KEYS) if x in k}))
     record["kernels"] = rows
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

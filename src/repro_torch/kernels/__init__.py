@@ -3,8 +3,9 @@ version.  ``launch_counts`` / ``reset_launch_counts`` read and clear the
 wrappers' launch counters (a wrapper counts only the launches of its
 kernel, never a call that took the plain version).  ``launch_counts`` has
 one entry per TPU kernel replaced; ``sub_launch_counts`` splits two of
-them: the bf16 tensor-core launches among ``flash_attention``'s, and the
-plan builds that ``fill_stats``'s rounds walk."""
+them: the bf16 launches among ``flash_attention``'s (on the mma.sync
+kernel and on the wgmma kernel), and the plan builds that
+``fill_stats``'s rounds walk."""
 from __future__ import annotations
 
 
@@ -21,6 +22,8 @@ def _sub_counters():
     from . import attention, maxmin
     return {"flash_attention_mma": (attention.flash_attention,
                                     "mma_launches"),
+            "flash_attention_wgmma": (attention.flash_attention,
+                                      "wgmma_launches"),
             "fill_plan": (maxmin.fill_plan, "launches")}
 
 

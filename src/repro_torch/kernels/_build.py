@@ -21,14 +21,15 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("maxmin", "horizon", "scan", "attention")
+SOURCES = ("maxmin", "horizon", "scan", "attention", "attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # -fmad=false where the kernel must round each product and sum as its plain
-# version does (bit-equal results); the attention kernel is held to a
-# tolerance instead and keeps fused multiply-adds.
+# version does (bit-equal results); the attention kernels are held to a
+# tolerance instead and keep fused multiply-adds.
 SOURCE_FLAGS = {"maxmin": ("-fmad=false",), "horizon": ("-fmad=false",),
-                "scan": ("-fmad=false",), "attention": ()}
+                "scan": ("-fmad=false",), "attention": (),
+                "attention_wgmma": ()}
 
 
 def _flags(name: str) -> tuple[str, ...]:

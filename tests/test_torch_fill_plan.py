@@ -161,6 +161,7 @@ def test_plain_plan_and_round_count_no_launches():
                       live, unfrozen, perf)
     maxmin.fill_stats(prov, cons, r, live, unfrozen, perf)
     assert kernels.sub_launch_counts() == {"flash_attention_mma": 0,
+                                           "flash_attention_wgmma": 0,
                                            "fill_plan": 0}
     assert kernels.launch_counts()["fill_stats"] == 0
 
